@@ -1,0 +1,402 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch + CUDA port on one NVIDIA card.
+
+    python3 chip_smoke.py
+
+Builds the port's kernels from `halo2_aggregation_tpu_torch/csrc`, checks
+each against its plain PyTorch version on the card, then drives the main
+path once at production size: B = 128 simple-example (k = 9) proofs folded
+into one accumulator by `verify_batch(..., aggregate=True, device="cuda")`.
+
+Phases (each prints on its own lines; any failure raises and exits
+nonzero before the last line):
+  0. card and versions (`nvidia-smi` name and power limit, torch, CUDA);
+  1. kernel build (nvcc), timed, with ptxas' register and spill report;
+  2. K1 (windowed scalar-mul) at the main path's 4,608 lanes against its
+     plain version (affine equality), 16 lanes against the oracle, and a
+     ragged lane count against the full launch;
+  3. K2 (field-algebra tape) on a real B = 128 batch against its plain
+     version (bit for bit), 8 lanes against the host IntOps formulas, and
+     a ragged batch against the full launch;
+  4. the main path: result True, quads equal the host `verify_proof`, a
+     tampered proof and a wrong public input rejected, both kernels
+     launched by the main path, median of 5 wall times, the stage split and
+     peak device memory; then one run under torch.profiler for the
+     device's busy share and its kernels by name.
+Then one JSON line with the kernels' numbers, and as the last line
+{"ok": true, "device": {...}}.  Exits nonzero, printing no result, when no
+CUDA device is visible.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import statistics
+import subprocess
+import sys
+import time
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+# the SRS cache stays inside the checkout (build/ is not committed)
+os.environ.setdefault("H2A_PARAMS_CACHE", os.path.join(ROOT, "build", "h2a-params"))
+sys.path.insert(0, ROOT)
+
+B = 128  # production batch (halo2_aggregation_tpu/config.py:50)
+K = 9  # simple-example inner circuit (config.py:30)
+SEED = 20261016
+
+
+def emit(obj) -> None:
+    print(json.dumps(obj) if isinstance(obj, dict) else obj, flush=True)
+
+
+def cuda_ms(fn, reps: int) -> float:
+    """Mean milliseconds per call of `fn` on the card (CUDA events)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def max_abs_err(a: list, b: list) -> int:
+    """Largest coordinate difference between two lists of affine points."""
+    err = 0
+    for p, q in zip(a, b):
+        if (p is None) != (q is None):
+            raise AssertionError(f"identity mismatch: {p} vs {q}")
+        if p is not None:
+            err = max(err, abs(p[0] - q[0]), abs(p[1] - q[1]))
+    return err
+
+
+def phase_card():
+    import torch
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip()
+    emit(smi.splitlines()[0])
+    emit({
+        "phase": "card", "nvidia_smi": smi, "torch": torch.__version__,
+        "cuda": torch.version.cuda, "python": sys.version.split()[0],
+        "device_name": torch.cuda.get_device_name(0),
+    })
+    return smi.splitlines()[0]
+
+
+def phase_build():
+    from halo2_aggregation_tpu_torch.ops import build
+
+    t0 = time.perf_counter()
+    lib_path = build.build_library()
+    build.load_library()
+    seconds = time.perf_counter() - t0
+    log = (lib_path.parent / "ptxas.log").read_text().splitlines()
+    for line in log:
+        if "registers" in line or "spill" in line or "Compiling entry" in line or line.startswith("#"):
+            emit("ptxas: " + line.strip())
+    emit({"phase": "build", "seconds": round(seconds, 3), "library": str(lib_path.relative_to(ROOT))})
+
+
+def k1_lanes(n: int, rng):
+    """n lanes of (point, plain scalar): random multiples of G with random
+    scalars < r, and mixed in: identity points, zero scalars, scalars 1,
+    r - 1 and 2^256 - 1, and scalars whose ladder adds acc == +-table[d]
+    (the doubling and cancelling cases of jac_add)."""
+    from halo2_aggregation_tpu.fields import R
+    from halo2_aggregation_tpu.oracle import curve as oc
+    from halo2_aggregation_tpu.utils import native
+
+    if not native.available():
+        raise RuntimeError("the native host engine is needed to make K1's test points")
+    g = oc.g1_generator()
+    pts = native.g1_batch_mul(g, [int.from_bytes(rng.bytes(32), "little") % R for _ in range(n)])
+    ks = [int.from_bytes(rng.bytes(32), "little") % R for _ in range(n)]
+    # last window d with 16 * prefix == +-d (mod r): the final add meets
+    # acc == d*P (doubling) or acc == -d*P (identity)
+    inv16 = pow(16, -1, R)
+    special = []
+    for d in range(1, 16):
+        for sign in (1, -1):
+            prefix = sign * d * inv16 % R
+            if prefix < 1 << 252:
+                special.append(16 * prefix + d)
+    edge = [0, 1, R - 1, (1 << 256) - 1] + special
+    for i, k in enumerate(edge):
+        ks[1 + 7 * i] = k
+    for i in range(0, n, 97):
+        pts[i] = None  # identity points
+    return pts, ks, len(special)
+
+
+def phase_k1(device):
+    import numpy as np
+    import torch
+
+    from halo2_aggregation_tpu.oracle import curve as oc
+    from halo2_aggregation_tpu_torch.ops import curve_ops as co
+    from halo2_aggregation_tpu_torch.ops.ec_kernels import scalar_mul_win
+    from halo2_aggregation_tpu_torch.ops.limbs import ints_to_tensor
+
+    n = B * 36  # the main path's lanes: 35 multiopen lanes + the e-lane
+    rng = np.random.default_rng(SEED)
+    pts, ks, n_special = k1_lanes(n, rng)
+    P = co.affine_to_jac(co.affine_from_ints(pts, device))
+    s = ints_to_tensor(ks, device)
+    out = scalar_mul_win(P, s)
+    # a ragged lane count (not a multiple of the block) gives the same lanes
+    m = n - 5
+    ragged = scalar_mul_win(co.JacPoint(*(c[:m] for c in P)), s[:m])
+    if not all(torch.equal(a, b[:m]) for a, b in zip(ragged, out)):
+        raise AssertionError("K1 on a ragged lane count != the full launch")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ref = co.scalar_mul(P, s)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    got, want = co.jac_to_ints(out), co.jac_to_ints(ref)
+    err = max_abs_err(got, want)
+    if got != want:
+        bad = [i for i, (a, b) in enumerate(zip(got, want)) if a != b]
+        raise AssertionError(f"K1 != plain on {len(bad)} lanes, first {bad[:8]}")
+    zero_ok = all(got[i] is None for i in range(n) if pts[i] is None or ks[i] == 0)
+    if not zero_ok:
+        raise AssertionError("K1: zero scalar or identity point did not give the identity")
+    idx = list(range(16))
+    oracle = [oc.g1_mul(pts[i], ks[i]) if pts[i] is not None else None for i in idx]
+    if [got[i] for i in idx] != oracle:
+        raise AssertionError("K1 != oracle g1_mul on the first 16 lanes")
+    ms = cuda_ms(lambda: scalar_mul_win(P, s), reps=5)
+    rec = {
+        "name": "ec_win", "route": "cuda",
+        "source": "halo2_aggregation_tpu_torch/csrc/ec_win.cu",
+        "replaces": "halo2_aggregation_tpu/ops/ec_pallas.py:354",
+        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+    }
+    emit({
+        "phase": "k1", "lanes": n, "doubling_cases": n_special, "oracle_lanes": 16,
+        "tolerance": "exact: equal affine points", **rec,
+    })
+    return rec
+
+
+def make_proofs():
+    from halo2_aggregation_tpu.models import simple_example as se
+    from halo2_aggregation_tpu.plonk import kzg
+    from halo2_aggregation_tpu.plonk.keygen import keygen
+    from halo2_aggregation_tpu.plonk.prover import create_proof
+
+    params = kzg.setup(K)
+    circuit = se.MyCircuit(constant=7, a=2, b=3)
+    cs_e, _, asg_e = se.build(circuit.without_witnesses(), k=K)
+    vk, pk = keygen(params, cs_e, asg_e)
+    protos = []
+    for a, b in [(2, 3), (4, 5), (1, 255), (6, 6)]:
+        c = se.MyCircuit(constant=7, a=a, b=b)
+        _, _, asg = se.build(c, k=K)
+        pub = [c.public_output()]
+        protos.append(([pub], create_proof(params, pk, asg, [pub], seed=40 + a)))
+    return params, vk, protos
+
+
+def phase_k2(params, vk, protos, device):
+    import torch
+
+    from halo2_aggregation_tpu.plonk.verifier import parse_proof
+    from halo2_aggregation_tpu_torch.ops import field_ops as fo
+    from halo2_aggregation_tpu_torch.plonk import fa_fused as ff
+    from halo2_aggregation_tpu_torch.plonk.protocol_ops import IntInvOps
+    from halo2_aggregation_tpu_torch.plonk.verifier_device import batch_proofs
+
+    comms = [[params.commit_lagrange(col) for col in insts] for insts, _ in protos]
+    parsed = [parse_proof(vk, comms[i % 4], protos[i % 4][1]) for i in range(B)]
+    batch = batch_proofs(vk, parsed, device)
+    tape = ff.fa_tape(vk)
+    inputs = torch.stack(ff.fa_gather(vk, batch)).contiguous()
+    out = ff.fa_tape_eval(tape, inputs)
+    # a ragged batch (not a multiple of the block) gives the same lanes
+    m = B - 3
+    if not torch.equal(ff.fa_tape_eval(tape, inputs[:, :m].contiguous()), out[:, :m]):
+        raise AssertionError("K2 on a ragged batch != the full launch")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ref = ff.fa_tape_eval_plain(tape, inputs)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    err = int((out.to(torch.int64) - ref.to(torch.int64)).abs().max())
+    if not torch.equal(out, ref):
+        raise AssertionError("K2 != plain tape evaluation")
+    # 8 lanes against the host formulas on the parsed proofs' own ints
+    schedule = ff.fa_schedule(vk)
+    host_in = [fo.FR.from_mont_tensor(a) for a in ff.fa_gather(vk, batch)]
+    got = [fo.FR.from_mont_tensor(o) for o in out]
+    for lane in range(min(8, B)):
+        vals = {tag: host_in[j][lane] for j, tag in enumerate(schedule)}
+        want = ff.fa_program(IntInvOps(), vk, vals)
+        if tuple(g[lane] for g in got) != tuple(want):
+            raise AssertionError(f"K2 != host IntOps on lane {lane}")
+    ms = cuda_ms(lambda: ff.fa_tape_eval(tape, inputs), reps=5)
+    rec = {
+        "name": "fa_tape", "route": "cuda",
+        "source": "halo2_aggregation_tpu_torch/csrc/fa_tape.cu",
+        "replaces": "halo2_aggregation_tpu/plonk/fa_fused.py:275",
+        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+    }
+    emit({
+        "phase": "k2", "batch": B, "tape_instrs": int(tape.instrs.shape[0]),
+        "tape_temps": tape.n_temps, "host_lanes": 8, "tolerance": "exact: equal bits", **rec,
+    })
+    return rec
+
+
+def phase_main(params, vk, protos, device):
+    import torch
+
+    from halo2_aggregation_tpu.plonk.verifier import verify_proof
+    from halo2_aggregation_tpu_torch.ops.ec_kernels import scalar_mul_win
+    from halo2_aggregation_tpu_torch.plonk.fa_fused import fa_tape_eval
+    from halo2_aggregation_tpu_torch.plonk.verifier_device import verify_batch
+
+    insts = [protos[i % 4][0] for i in range(B)]
+    proofs = [protos[i % 4][1] for i in range(B)]
+
+    torch.cuda.reset_peak_memory_stats(device)
+    scalar_mul_win.launches = 0
+    fa_tape_eval.launches = 0
+    ok, efws = verify_batch(params, vk, insts, proofs, device=device, aggregate=True)
+    torch.cuda.synchronize()
+    launches = {"ec_win": scalar_mul_win.launches, "fa_tape": fa_tape_eval.launches}
+    if ok is not True:
+        raise AssertionError(f"aggregate check returned {ok!r}")
+    if min(launches.values()) < 1:
+        raise AssertionError(f"a kernel of the main path was not launched: {launches}")
+    for i, (pub, proof) in enumerate(protos):
+        ok_h, efw = verify_proof(params, vk, pub, proof)
+        if not ok_h or tuple(efw) != tuple(efws[i]):
+            raise AssertionError(f"quad of proof {i} != host verify_proof")
+
+    # tampered inputs at a small batch: one flipped proof byte, one wrong
+    # public input; each must fail the aggregate check or fail to parse
+    rejected = {}
+    bad = bytearray(proofs[0])
+    bad[100] ^= 1
+    cases = {
+        "flipped_byte": (insts[:8], [bytes(bad)] + proofs[1:8]),
+        "wrong_public_input": ([[[insts[0][0][0] + 1]]] + insts[1:8], proofs[:8]),
+    }
+    for name, (ins, prs) in cases.items():
+        try:
+            ok_bad, _ = verify_batch(params, vk, ins, prs, device=device)
+            rejected[name] = "check_failed" if ok_bad is False else None
+        except ValueError as e:
+            rejected[name] = f"parse_raised: {e}"
+        if rejected[name] is None:
+            raise AssertionError(f"tampered batch ({name}) was accepted")
+    torch.cuda.synchronize()
+
+    runs = []
+    for _ in range(5):
+        t = {}
+        t0 = time.perf_counter()
+        ok_r, _ = verify_batch(params, vk, insts, proofs, device=device, timings=t)
+        torch.cuda.synchronize()
+        t["wall"] = time.perf_counter() - t0
+        if ok_r is not True:
+            raise AssertionError("aggregate check failed on a timed run")
+        runs.append(t)
+    wall = statistics.median(r["wall"] for r in runs)
+    split = {k: statistics.median(r[k] for r in runs) for k in ("parse", "prep", "device", "pairing")}
+    emit({
+        "phase": "main", "batch": B, "k": K, "ok": ok, "launches": launches,
+        "quads_match_host": len(protos), "rejected": rejected,
+        "wall_s_median": wall, "wall_s_runs": [r["wall"] for r in runs],
+        "proofs_per_s": B / wall, "stage_s_median": split,
+        "peak_device_mib": torch.cuda.max_memory_allocated(device) / 2**20,
+    })
+    phase_profile(params, vk, insts, proofs, device)
+    return launches
+
+
+def phase_profile(params, vk, insts, proofs, device):
+    """One more main-path run under torch.profiler: the device's busy time
+    (sum of kernel and copy durations on the one stream) against the wall,
+    and the kernels by name.  Prints "not measured" if the profiler
+    recorded no device activity."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from halo2_aggregation_tpu_torch.plonk.verifier_device import verify_batch
+
+    t = {}
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        ok, _ = verify_batch(params, vk, insts, proofs, device=device, timings=t)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    if ok is not True:
+        raise AssertionError("aggregate check failed on the profiled run")
+    by_name = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            n, us = by_name.get(e.name, (0, 0.0))
+            by_name[e.name] = (n + 1, us + e.time_range.elapsed_us())
+    busy_us = sum(us for _, us in by_name.values())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:8]
+    emit({
+        "phase": "profile", "wall_s": wall, "stage_s": t,
+        "device_events": sum(n for n, _ in by_name.values()) or "not measured",
+        "device_busy_ms": busy_us / 1e3 if by_name else "not measured",
+        "device_busy_share": busy_us / 1e6 / wall if by_name else "not measured",
+        # [kernel name cut to 120 characters, launches, ms]
+        "top_device_ms": [[name[:120], n, us / 1e3] for name, (n, us) in top],
+    })
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False; this run needs a CUDA card",
+              file=sys.stderr)
+        return 1
+    # the port must be beside this script: without it, fail before any output
+    import halo2_aggregation_tpu_torch  # noqa: F401
+
+    device = torch.device("cuda", 0)
+    phase_card()
+    phase_build()
+    torch.cuda.synchronize()
+    k1 = phase_k1(device)
+    torch.cuda.synchronize()
+    params, vk, protos = make_proofs()
+    k2 = phase_k2(params, vk, protos, device)
+    torch.cuda.synchronize()
+    launches = phase_main(params, vk, protos, device)
+    torch.cuda.synchronize()
+    k1["launches"] = launches["ec_win"]
+    k2["launches"] = launches["fa_tape"]
+    emit({"kernels": [k1, k2]})
+    emit({
+        "ok": True,
+        "device": {
+            "platform": "gpu",
+            "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count(),
+        },
+    })
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

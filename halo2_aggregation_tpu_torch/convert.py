@@ -1,0 +1,78 @@
+"""State carried over from the JAX package into the port.
+
+The vk, `Params` and proofs are shared host objects, so only the JAX
+package's limb arrays need converting: its `VerifierBatch` (with numpy or
+jax array leaves) and its point and scalar arrays, from `(..., 32)` 8-bit
+limbs to the port's `(..., 8)` 32-bit limbs.  Montgomery form is the same
+(R = 2^256), so this is repacking only.  Nothing here imports jax: the
+JAX objects are read by attribute and through `np.asarray`.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from halo2_aggregation_tpu.plonk.protocol import LookupEvals, PermutationSetEvals
+
+from .device import resolve_device
+from .ops.curve_ops import JacPoint
+from .ops.limbs import jax_to_port
+from .plonk.verifier_device import VerifierBatch
+
+
+def scalars_from_jax(arr, device) -> torch.Tensor:
+    """JAX `(..., 32)` limb array -> port `(..., 8)` tensor (same values)."""
+    return torch.from_numpy(jax_to_port(np.asarray(arr))).to(resolve_device(device))
+
+
+def points_from_jax(p, device) -> JacPoint:
+    """JAX `JacPoint` (x, y, z of (..., 32)) -> port JacPoint."""
+    return JacPoint(*(scalars_from_jax(c, device) for c in (p.x, p.y, p.z)))
+
+
+def from_jax_batch(jb, device) -> VerifierBatch:
+    """JAX `verifier_tpu.VerifierBatch` -> the port's VerifierBatch."""
+
+    def S(a):
+        return None if a is None else scalars_from_jax(a, device)
+
+    def P(p):
+        return points_from_jax(p, device)
+
+    return VerifierBatch(
+        theta=S(jb.theta),
+        beta=S(jb.beta),
+        gamma=S(jb.gamma),
+        y=S(jb.y),
+        x=S(jb.x),
+        v=S(jb.v),
+        u=S(jb.u),
+        inst_evals=[S(a) for a in jb.inst_evals],
+        adv_evals=[S(a) for a in jb.adv_evals],
+        fix_evals=[S(a) for a in jb.fix_evals],
+        r_eval=S(jb.r_eval),
+        sigma_evals=[S(a) for a in jb.sigma_evals],
+        perm_sets=[
+            PermutationSetEvals(z=S(ps.z), z_next=S(ps.z_next), z_last=S(ps.z_last))
+            for ps in jb.perm_sets
+        ],
+        lookup_evs=[
+            LookupEvals(
+                z=S(lv.z),
+                z_next=S(lv.z_next),
+                a_prime=S(lv.a_prime),
+                a_prime_prev=S(lv.a_prime_prev),
+                s_prime=S(lv.s_prime),
+            )
+            for lv in jb.lookup_evs
+        ],
+        inst_comms=[P(p) for p in jb.inst_comms],
+        adv_comms=[P(p) for p in jb.adv_comms],
+        lookups_permuted=[(P(a), P(s)) for a, s in jb.lookups_permuted],
+        perm_z_comms=[P(p) for p in jb.perm_z_comms],
+        lookup_z_comms=[P(p) for p in jb.lookup_z_comms],
+        r_comm=P(jb.r_comm),
+        h_comms=[P(p) for p in jb.h_comms],
+        w_comms=[P(p) for p in jb.w_comms],
+    )

@@ -1,0 +1,142 @@
+"""Build and load the CUDA kernels (`csrc/*.cu`).
+
+nvcc compiles the sources into one shared library with a plain C
+interface for sm_90a (H100), into `build/kernels/<hash>/` at the root of
+the checkout, keyed by a hash of the sources and flags, at first use.
+`ctypes` loads it; every pointer and the stream pass as `c_void_p`, and
+every entry point returns `cudaGetLastError()`, which `check` turns into an
+exception.  PyTorch's headers are not included, which keeps a build to
+seconds.  A missing nvcc or a failed build raises: there is no fallback.
+
+`build_host_library` compiles the same headers with g++ through
+`csrc/host_shim.cpp`, so the CPU tests can run the kernels' per-lane code.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+import torch
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "kernels"
+KERNEL_SOURCES = ("ec_win.cu", "fa_tape.cu")
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+LIB_NAME = "libh2a_kernels.so"
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_SIGNATURES = {
+    # px, py, pz, scalars, ox, oy, oz, n, stream
+    "h2a_ec_win": [_P, _P, _P, _P, _P, _P, _P, _I, _P],
+    # tape, n_instr, consts, in, n_in, tmp, out_regs, n_out, out, lanes, stream
+    "h2a_fa_tape": [_P, _I, _P, _P, _I, _P, _P, _I, _P, _I, _P],
+}
+
+
+def find_nvcc() -> str:
+    path = shutil.which("nvcc")
+    if path is None:
+        cand = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "nvcc"
+        if cand.is_file():
+            path = str(cand)
+    if path is None:
+        raise RuntimeError(
+            "nvcc not found (PATH, $CUDA_HOME/bin): the CUDA kernels cannot be built"
+        )
+    return path
+
+
+def _source_hash() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for f in sorted(CSRC.iterdir()):
+        if f.suffix in (".cu", ".cuh"):
+            h.update(f.name.encode())
+            h.update(f.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def build_library(build_root: Path = BUILD_ROOT) -> Path:
+    """Compile the kernels unless this source hash is built already.
+    Returns the library's path; nvcc's ptxas report (registers, spills)
+    is kept beside it as `ptxas.log`."""
+    out_dir = Path(build_root) / _source_hash()
+    lib = out_dir / LIB_NAME
+    if lib.is_file():
+        return lib
+    nvcc = find_nvcc()
+    out_dir.mkdir(parents=True, exist_ok=True)
+    tmp = out_dir / f"{LIB_NAME}.{os.getpid()}.tmp"
+    cmd = [nvcc, *NVCC_FLAGS, f"-I{CSRC}", "-o", str(tmp)]
+    cmd += [str(CSRC / s) for s in KERNEL_SOURCES]
+    t0 = time.perf_counter()
+    res = subprocess.run(cmd, capture_output=True, text=True)
+    if res.returncode != 0:
+        raise RuntimeError(
+            f"nvcc failed ({res.returncode}):\n{' '.join(cmd)}\n{res.stdout}\n{res.stderr}"
+        )
+    (out_dir / "ptxas.log").write_text(
+        f"# {time.perf_counter() - t0:.1f} s: {' '.join(cmd)}\n{res.stdout}{res.stderr}"
+    )
+    os.replace(tmp, lib)
+    return lib
+
+
+@functools.cache
+def load_library() -> ctypes.CDLL:
+    """The kernels' library, built on first use, with its signatures set."""
+    lib = ctypes.CDLL(str(build_library()))
+    for name, argtypes in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def check(rc: int, name: str) -> None:
+    """Raise on a nonzero cudaError_t returned by an entry point."""
+    if rc != 0:
+        raise RuntimeError(f"{name}: CUDA error {rc} at launch")
+
+
+def stream_ptr(device) -> int:
+    """PyTorch's current CUDA stream on `device`, as a pointer for ctypes."""
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def build_host_library(out_dir) -> ctypes.CDLL:
+    """g++ build of `csrc/host_shim.cpp` (the kernels' headers on the host)
+    into `out_dir`, loaded with ctypes."""
+    gxx = shutil.which("g++")
+    if gxx is None:
+        raise RuntimeError("g++ not found")
+    so = Path(out_dir) / "libh2a_host_core.so"
+    cmd = [
+        gxx, "-std=c++17", "-O2", "-Wno-unknown-pragmas", "-shared", "-fPIC",
+        f"-I{CSRC}", "-o", str(so), str(CSRC / "host_shim.cpp"),
+    ]
+    res = subprocess.run(cmd, capture_output=True, text=True)
+    if res.returncode != 0:
+        raise RuntimeError(f"g++ failed:\n{res.stderr}")
+    lib = ctypes.CDLL(str(so))
+    sigs = {
+        "h2a_host_mont_mul": [_I, _P, _P, _P, _I],
+        "h2a_host_jac_add": [_P, _P, _P, _I],
+        "h2a_host_ec_win": [_P, _P, _P, _P, _P, _P, _P, _I],
+        "h2a_host_fa_tape": [_P, _I, _P, _P, _I, _P, _P, _I, _P, _I],
+    }
+    for name, argtypes in sigs.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = None
+    return lib

@@ -1,0 +1,515 @@
+"""The batched verifier on a CUDA device: B proofs folded into one accumulator.
+
+Counterpart of `halo2_aggregation_tpu/plonk/verifier_tpu.py`'s production
+path (`verify_batch(aggregate=True)` -> `verify_algebra_fast`):
+
+1. host: `parse_proof` replays each transcript (shared host module), then
+   `batch_proofs` and `fast_prep_gathered` build the batch;
+2. device: `fast_device_gathered` -> `fast_device`: the fused field algebra
+   (kernel K2) gives h_eval, one windowed scalar-mul (kernel K1) runs over
+   all B x (M + 1) multiopen lanes including the e-lane, and per-component
+   tree sums give each proof's quad (e, f, w, zw);
+3. host: `check_aggregate` folds all quads into one pairing.
+
+`_multiopen_coefficients`, `synthetic_batch` and `aggregate_quads` /
+`check_aggregate` are copies of the JAX module's host code: that module
+imports jax, so the port cannot import them.  The sequential
+`verify_algebra` cross-check is not ported; the host `verify_proof` is the
+reference for quads.
+"""
+
+from __future__ import annotations
+
+import time
+from dataclasses import dataclass
+from typing import List
+
+import numpy as np
+import torch
+
+from halo2_aggregation_tpu.fields import G1_GEN, R
+from halo2_aggregation_tpu.plonk.keygen import VerifyingKey
+from halo2_aggregation_tpu.plonk.protocol import (
+    LookupEvals,
+    PermutationSetEvals,
+    query_schedule,
+    rotation_sets,
+)
+from halo2_aggregation_tpu.plonk.verifier import (
+    ParsedProof,
+    num_perm_chunks,
+    parse_proof,
+)
+
+from ..device import resolve_device
+from ..ops import curve_ops as co
+from ..ops import field_ops as fo
+from ..ops.curve_ops import JacPoint
+from ..ops.ec_kernels import scalar_mul_win
+from ..ops.limbs import ints_to_np
+from .fa_fused import field_algebra_fused
+
+FR = fo.FR
+QUAD_NAMES = ("e", "f", "w", "zw")
+
+
+def _points(pts, device) -> JacPoint:
+    """(B,) oracle points -> JacPoint of (B, 8) Montgomery Fq."""
+    return co.affine_to_jac(co.affine_from_ints(pts, device))
+
+
+@dataclass
+class VerifierBatch:
+    """Batched device inputs for B proofs under one vk: scalars are (B, 8)
+    Montgomery Fr tensors, points JacPoints of (B, 8) Montgomery Fq."""
+
+    theta: torch.Tensor
+    beta: torch.Tensor
+    gamma: torch.Tensor
+    y: torch.Tensor
+    x: torch.Tensor
+    v: torch.Tensor
+    u: torch.Tensor
+    inst_evals: list
+    adv_evals: list
+    fix_evals: list
+    r_eval: torch.Tensor
+    sigma_evals: list
+    perm_sets: list  # of PermutationSetEvals with (B, 8) leaves
+    lookup_evs: list  # of LookupEvals with (B, 8) leaves
+    inst_comms: list
+    adv_comms: list
+    lookups_permuted: list  # (A', S') pairs
+    perm_z_comms: list
+    lookup_z_comms: list
+    r_comm: JacPoint
+    h_comms: list
+    w_comms: list
+
+
+def batch_proofs(vk: VerifyingKey, parsed: List[ParsedProof], device) -> VerifierBatch:
+    device = resolve_device(device)
+    cs = vk.cs
+    num_chunks = num_perm_chunks(cs)
+
+    def S(get):
+        return FR.to_mont_tensor([get(p) for p in parsed], device)
+
+    def P(get):
+        return _points([get(p) for p in parsed], device)
+
+    perm_sets = [
+        PermutationSetEvals(
+            z=S(lambda p, ci=ci: p.perm_sets[ci].z),
+            z_next=S(lambda p, ci=ci: p.perm_sets[ci].z_next),
+            z_last=(
+                S(lambda p, ci=ci: p.perm_sets[ci].z_last)
+                if ci < num_chunks - 1
+                else None
+            ),
+        )
+        for ci in range(num_chunks)
+    ]
+    lookup_evs = [
+        LookupEvals(
+            z=S(lambda p, li=li: p.lookup_evs[li].z),
+            z_next=S(lambda p, li=li: p.lookup_evs[li].z_next),
+            a_prime=S(lambda p, li=li: p.lookup_evs[li].a_prime),
+            a_prime_prev=S(lambda p, li=li: p.lookup_evs[li].a_prime_prev),
+            s_prime=S(lambda p, li=li: p.lookup_evs[li].s_prime),
+        )
+        for li in range(len(cs.lookups))
+    ]
+    return VerifierBatch(
+        theta=S(lambda p: p.theta),
+        beta=S(lambda p: p.beta),
+        gamma=S(lambda p: p.gamma),
+        y=S(lambda p: p.y),
+        x=S(lambda p: p.x),
+        v=S(lambda p: p.v),
+        u=S(lambda p: p.u),
+        inst_evals=[S(lambda p, i=i: p.inst_evals[i]) for i in range(len(cs.instance_queries))],
+        adv_evals=[S(lambda p, i=i: p.adv_evals[i]) for i in range(len(cs.advice_queries))],
+        fix_evals=[S(lambda p, i=i: p.fix_evals[i]) for i in range(len(cs.fixed_queries))],
+        r_eval=S(lambda p: p.r_eval),
+        sigma_evals=[
+            S(lambda p, i=i: p.sigma_evals[i]) for i in range(len(cs.permutation_columns))
+        ],
+        perm_sets=perm_sets,
+        lookup_evs=lookup_evs,
+        inst_comms=[P(lambda p, i=i: p.inst_comms[i]) for i in range(cs.num_instance_columns)],
+        adv_comms=[P(lambda p, i=i: p.adv_comms[i]) for i in range(cs.num_advice_columns)],
+        lookups_permuted=[
+            (
+                P(lambda p, i=i: p.lookups_permuted[i][0]),
+                P(lambda p, i=i: p.lookups_permuted[i][1]),
+            )
+            for i in range(len(cs.lookups))
+        ],
+        perm_z_comms=[P(lambda p, i=i: p.perm_z_comms[i]) for i in range(num_chunks)],
+        lookup_z_comms=[P(lambda p, i=i: p.lookup_z_comms[i]) for i in range(len(cs.lookups))],
+        r_comm=P(lambda p: p.r_comm),
+        h_comms=[P(lambda p, i=i: p.h_comms[i]) for i in range(cs.quotient_poly_degree())],
+        w_comms=[P(lambda p, i=i: p.w_comms[i]) for i in range(len(parsed[0].w_comms))],
+    )
+
+
+def _multiopen_coefficients(vk: VerifyingKey, p: ParsedProof):
+    """Host-side: expand the GWC folds into explicit linear combinations
+    (a copy of `verifier_tpu._multiopen_coefficients`).
+
+    Every output point of the multiopen (w, zw, f) is a linear combination
+    of transcript/vk points whose coefficients are products of u/v powers,
+    z_i and x^n powers, all host-known after transcript replay.  e is
+    -(eval_multi) * G1, where eval_multi splits into a host-known part and
+    one h_eval-dependent term.  Lane points are descriptors naming a
+    transcript point of the VerifierBatch or a vk constant.
+
+    Returns per-component [(descriptor, scalar)] lane lists plus the
+    coefficient of h_eval inside eval_multi."""
+    cs = vk.cs
+    omega = vk.omega
+    omega_inv = pow(omega, -1, R)
+    x, u, v = p.x, p.u, p.v
+    xn = pow(x, vk.n, R)
+    num_chunks = num_perm_chunks(cs)
+    sched = query_schedule(cs, num_chunks, len(cs.lookups))
+
+    def resolve(q):
+        if q.kind == "instance":
+            col, _ = cs.instance_queries[q.index]
+            return [(("inst", col.index), 1)], p.inst_evals[q.index]
+        if q.kind == "advice":
+            col, _ = cs.advice_queries[q.index]
+            return [(("adv", col.index), 1)], p.adv_evals[q.index]
+        if q.kind == "fixed":
+            col, _ = cs.fixed_queries[q.index]
+            return [(("fixed", col.index), 1)], p.fix_evals[q.index]
+        if q.kind == "perm_z":
+            ev = p.perm_sets[q.index]
+            return [(("perm_z", q.index), 1)], (ev.z if q.rotation == 0 else ev.z_next)
+        if q.kind == "perm_z_last":
+            return [(("perm_z", q.index), 1)], p.perm_sets[q.index].z_last
+        if q.kind == "lookup_z":
+            ev = p.lookup_evs[q.index]
+            return [(("lookup_z", q.index), 1)], (ev.z if q.rotation == 0 else ev.z_next)
+        if q.kind == "lookup_a":
+            ev = p.lookup_evs[q.index]
+            return [(("lookup_a", q.index), 1)], (
+                ev.a_prime if q.rotation == 0 else ev.a_prime_prev
+            )
+        if q.kind == "lookup_s":
+            return [(("lookup_s", q.index), 1)], p.lookup_evs[q.index].s_prime
+        if q.kind == "sigma":
+            return [(("sigma", q.index), 1)], p.sigma_evals[q.index]
+        if q.kind == "vanishing_h":
+            # H = sum_l (x^n)^l h_l  (vanishing.rs:177-188)
+            lanes = []
+            c = 1
+            for l in range(len(p.h_comms)):
+                lanes.append((("h", l), c))
+                c = c * xn % R
+            return lanes, "h_eval"
+        if q.kind == "vanishing_r":
+            return [(("r", 0), 1)], p.r_eval
+        raise KeyError(q.kind)
+
+    by_rot = {}
+    for q in sched:
+        by_rot.setdefault(q.rotation, []).append(q)
+    rots = sorted(by_rot)
+    K = len(rots)
+
+    w_lanes, zw_lanes, f_lanes = [], [], []
+    eval_known = 0
+    h_coeff = 0
+    for i, rot in enumerate(rots):
+        upow = pow(u, K - 1 - i, R)
+        z_i = x * pow(omega, rot, R) % R if rot >= 0 else x * pow(omega_inv, -rot, R) % R
+        w_lanes.append((("w", i), upow))
+        zw_lanes.append((("w", i), upow * z_i % R))
+        qs = by_rot[rot]
+        m = len(qs)
+        for j, q in enumerate(qs):
+            coeff = upow * pow(v, m - 1 - j, R) % R
+            lanes, ev = resolve(q)
+            for desc, c in lanes:
+                f_lanes.append((desc, coeff * c % R))
+            if ev == "h_eval":
+                h_coeff = (h_coeff + coeff) % R
+            else:
+                eval_known = (eval_known + coeff * ev) % R
+
+    return {
+        "w": w_lanes,
+        "zw": zw_lanes,
+        "f": f_lanes,
+        "eval_known": eval_known,
+        "h_coeff": h_coeff,
+    }
+
+
+def _desc_point_batch(vk: VerifyingKey, b: VerifierBatch, desc, B: int) -> JacPoint:
+    """A lane descriptor -> (B, 8) JacPoint: transcript points come from the
+    VerifierBatch; vk constants are converted and broadcast."""
+    kind, idx = desc
+    if kind in ("fixed", "sigma"):
+        pts = vk.fixed_commitments if kind == "fixed" else vk.sigma_commitments
+        c = _points([pts[idx]], b.x.device)
+        return JacPoint(*(a.expand(B, 8) for a in c))
+    if kind in ("lookup_a", "lookup_s"):
+        return b.lookups_permuted[idx][0 if kind == "lookup_a" else 1]
+    table = {
+        "w": b.w_comms,
+        "inst": b.inst_comms,
+        "adv": b.adv_comms,
+        "perm_z": b.perm_z_comms,
+        "lookup_z": b.lookup_z_comms,
+        "h": b.h_comms,
+    }
+    if kind == "r":
+        return b.r_comm
+    if kind not in table:
+        raise KeyError(kind)
+    return table[kind][idx]
+
+
+def fast_prep_gathered(vk: VerifyingKey, parsed: List[ParsedProof], device):
+    """Host half: the per-lane plain scalars (B, M, 8) and the two (B, 8)
+    Montgomery vectors of the h_eval linearization.  Returns
+    (descs, lane_scalars, h_coeff_mont, known_mont); `descs` is the
+    vk-static per-component lane structure."""
+    device = resolve_device(device)
+    B = len(parsed)
+    coeffs = [_multiopen_coefficients(vk, p) for p in parsed]
+    names = ("w", "zw", "f")
+    descs = tuple(tuple(d for d, _ in coeffs[0][name]) for name in names)
+    flat_ss = [s for c in coeffs for name in names for _, s in c[name]]
+    m_tot = sum(len(comp) for comp in descs)
+    lane_scalars = torch.from_numpy(ints_to_np(flat_ss).reshape(B, m_tot, 8)).to(device)
+    h_coeff_mont = FR.to_mont_tensor([c["h_coeff"] for c in coeffs], device)
+    known_mont = FR.to_mont_tensor([c["eval_known"] for c in coeffs], device)
+    return descs, lane_scalars, h_coeff_mont, known_mont
+
+
+def fast_device_gathered(
+    vk: VerifyingKey, b: VerifierBatch, B: int, descs: tuple,
+    lane_scalars, h_coeff_mont, known_mont,
+):
+    """Device half: gather the lane points out of the VerifierBatch, then
+    run `fast_device`."""
+    ms = tuple(len(comp) for comp in descs)
+    pts = [_desc_point_batch(vk, b, d, B) for comp in descs for d in comp]
+    lane_pts = JacPoint(*(torch.stack([p[c] for p in pts], 1) for c in range(3)))
+    return fast_device(vk, b, B, ms, lane_pts, lane_scalars, h_coeff_mont, known_mont)
+
+
+def fast_device(
+    vk: VerifyingKey, b: VerifierBatch, B: int, ms: tuple,
+    lane_pts: JacPoint, lane_scalars, h_coeff_mont, known_mont,
+):
+    """Field algebra for h_eval (K2), ONE scalar-mul (K1) over every
+    multiopen lane plus the e-lane (e = -(eval_known + h_coeff*h_eval)*G1),
+    then per-component tree sums.  Returns {e, f, w, zw: JacPoint of (B, 8),
+    h_eval: (B, 8)}."""
+    device = b.x.device
+    h_eval, _, _ = field_algebra_fused(vk, b, B)
+
+    # e-lane scalar: -(eval_known + h_coeff * h_eval), decoded to plain
+    eval_multi = fo.add(fo.mont_mul(h_coeff_mont, h_eval, FR), known_mont, FR)
+    e_scalar = fo.from_mont(fo.neg(eval_multi, FR), FR)[:, None, :]
+    g1 = _points([G1_GEN], device)
+    all_pts = JacPoint(
+        *(torch.cat((lp, g.expand(B, 1, 8)), 1) for lp, g in zip(lane_pts, g1))
+    )
+    all_scalars = torch.cat((lane_scalars, e_scalar), 1)
+    per_all = scalar_mul_win(all_pts, all_scalars)  # (B, M + 1, 8)
+
+    # w, zw, f: one tree sum over lanes, components padded with identities
+    m_max = max(ms)
+    coords = [c.clone() for c in co.jac_identity((m_max, len(ms), B), device)]
+    off = 0
+    for j, m in enumerate(ms):
+        for buf, src in zip(coords, per_all):
+            buf[:m, j] = src[:, off : off + m].transpose(0, 1)
+        off += m
+    sums = co.jac_sum(JacPoint(*coords))  # (3, B, 8)
+
+    quads = {name: JacPoint(*(c[j] for c in sums)) for j, name in enumerate(("w", "zw", "f"))}
+    quads["e"] = JacPoint(*(c[:, off] for c in per_all))
+    quads["h_eval"] = h_eval
+    return quads
+
+
+def verify_algebra_fast(vk: VerifyingKey, b: VerifierBatch, parsed: List[ParsedProof]):
+    """Host prep + device half; the quads stay on the batch's device."""
+    descs, lane_scalars, h_coeff_mont, known_mont = fast_prep_gathered(
+        vk, parsed, b.x.device
+    )
+    return fast_device_gathered(
+        vk, b, len(parsed), descs, lane_scalars, h_coeff_mont, known_mont
+    )
+
+
+def quads_to_ints(out: dict) -> list:
+    """Device quads -> per-proof host (e, f, w, zw) affine int tuples, with
+    one device-to-host copy."""
+    arr = torch.stack([c for name in QUAD_NAMES for c in out[name]]).cpu()
+    cols = [co.jac_to_ints(JacPoint(*arr[3 * i : 3 * i + 3])) for i in range(4)]
+    return [tuple(col[i] for col in cols) for i in range(len(cols[0]))]
+
+
+def synthetic_batch(vk: VerifyingKey, B: int, device, seed: int = 0) -> VerifierBatch:
+    """A structurally-correct VerifierBatch with random field and point
+    values; the same numpy draws in the same order as the JAX
+    `synthetic_batch`, so one seed gives the same batch in both."""
+    from halo2_aggregation_tpu.oracle import curve as oc
+
+    device = resolve_device(device)
+    rng = np.random.default_rng(seed)
+    cs = vk.cs
+    num_chunks = num_perm_chunks(cs)
+
+    def ri():
+        return int.from_bytes(rng.bytes(40), "little") % R
+
+    def S():
+        return FR.to_mont_tensor([ri() for _ in range(B)], device)
+
+    def P():
+        g = oc.g1_generator()
+        return _points([oc.g1_mul(g, int(rng.integers(1, 1 << 31))) for _ in range(B)], device)
+
+    perm_sets = [
+        PermutationSetEvals(z=S(), z_next=S(), z_last=S() if ci < num_chunks - 1 else None)
+        for ci in range(num_chunks)
+    ]
+    lookup_evs = [
+        LookupEvals(z=S(), z_next=S(), a_prime=S(), a_prime_prev=S(), s_prime=S())
+        for _ in cs.lookups
+    ]
+    sched = query_schedule(cs, num_chunks, len(cs.lookups))
+    return VerifierBatch(
+        theta=S(),
+        beta=S(),
+        gamma=S(),
+        y=S(),
+        x=S(),
+        v=S(),
+        u=S(),
+        inst_evals=[S() for _ in cs.instance_queries],
+        adv_evals=[S() for _ in cs.advice_queries],
+        fix_evals=[S() for _ in cs.fixed_queries],
+        r_eval=S(),
+        sigma_evals=[S() for _ in cs.permutation_columns],
+        perm_sets=perm_sets,
+        lookup_evs=lookup_evs,
+        inst_comms=[P() for _ in range(cs.num_instance_columns)],
+        adv_comms=[P() for _ in range(cs.num_advice_columns)],
+        lookups_permuted=[(P(), P()) for _ in cs.lookups],
+        perm_z_comms=[P() for _ in range(num_chunks)],
+        lookup_z_comms=[P() for _ in cs.lookups],
+        r_comm=P(),
+        h_comms=[P() for _ in range(cs.quotient_poly_degree())],
+        w_comms=[P() for _ in rotation_sets(sched)],
+    )
+
+
+def aggregate_quads(quads, g1, s_g2, g2):
+    """Fold N deferred-pairing quads into ONE pairing check (a copy of
+    `verifier_tpu.aggregate_quads`).
+
+    Each quad satisfies e(w_i, [tau]_2) == e(zw_i + f_i + e_i, [1]_2); a
+    random linear combination with lambda derived by hashing all quads
+    (Fiat-Shamir, so the prover cannot bias it) reduces the N checks to
+        e(sum l^i w_i, [tau]_2) == e(sum l^i (zw_i+f_i+e_i), [1]_2).
+    Returns ((W, RHS), lambda)."""
+    import hashlib
+
+    from halo2_aggregation_tpu.oracle import curve as oc
+    from halo2_aggregation_tpu.utils import native
+    from halo2_aggregation_tpu.utils.serialization import g1_compress
+
+    h = hashlib.blake2b(digest_size=64, person=b"H2A-Aggregate---")
+    for e, f, w, zw in quads:
+        for p in (e, f, w, zw):
+            h.update(g1_compress(p))
+    lam = int.from_bytes(h.digest(), "little") % R
+
+    lams = []
+    lp = 1
+    for _ in quads:
+        lams.append(lp)
+        lp = lp * lam % R
+    ws = [w for _, _, w, _ in quads]
+    if native.available():
+        # RHS = sum_i lam^i (zw_i + f_i + e_i) as ONE 3B-point native MSM
+        W = native.g1_msm(ws, lams)
+        RHS = native.g1_msm(
+            [q[3] for q in quads] + [q[1] for q in quads] + [q[0] for q in quads],
+            lams * 3,
+        )
+    else:
+        rhss = [oc.g1_add(oc.g1_add(zw, f), e) for e, f, w, zw in quads]
+        W = None
+        RHS = None
+        for w, rhs, lp_i in zip(ws, rhss, lams):
+            W = oc.g1_add(W, oc.g1_mul(w, lp_i))
+            RHS = oc.g1_add(RHS, oc.g1_mul(rhs, lp_i))
+    return (W, RHS), lam
+
+
+def check_aggregate(quads, params) -> bool:
+    """One pairing for the whole batch (vs one per proof)."""
+    from halo2_aggregation_tpu.oracle import curve as oc
+    from halo2_aggregation_tpu.oracle.pairing import multi_pairing_check_fast
+
+    (W, RHS), _ = aggregate_quads(quads, params.g1, params.s_g2, params.g2)
+    return multi_pairing_check_fast([(W, params.s_g2), (oc.g1_neg(RHS), params.g2)])
+
+
+def verify_batch(
+    params,
+    vk: VerifyingKey,
+    instances_list,
+    proofs: List[bytes],
+    *,
+    device,
+    aggregate: bool = True,
+    timings: dict | None = None,
+):
+    """Full batched verification: host transcript replay, device algebra
+    (K2, K1 and the lane sums on `device`), host pairing.  With
+    aggregate=True, folds all quads into ONE pairing check and returns
+    (ok: bool, quads); otherwise ([ok per proof], quads).  `timings`, if
+    given, receives the stage split in seconds: parse, prep, device (up to
+    the quads on the host) and pairing."""
+    from halo2_aggregation_tpu.oracle import curve as oc
+    from halo2_aggregation_tpu.oracle.pairing import multi_pairing_check_fast
+
+    device = resolve_device(device)
+    t0 = time.perf_counter()
+    parsed = []
+    for insts, proof in zip(instances_list, proofs):
+        inst_comms = [params.commit_lagrange(col) for col in insts]
+        parsed.append(parse_proof(vk, inst_comms, proof))
+    t1 = time.perf_counter()
+    batch = batch_proofs(vk, parsed, device)
+    prep = fast_prep_gathered(vk, parsed, device)
+    t2 = time.perf_counter()
+    efws = quads_to_ints(fast_device_gathered(vk, batch, len(parsed), *prep))
+    t3 = time.perf_counter()
+    if aggregate:
+        result = check_aggregate(efws, params)
+    else:
+        result = []
+        for e, f, w, zw in efws:
+            rhs = oc.g1_add(oc.g1_add(zw, f), e)
+            result.append(
+                multi_pairing_check_fast([(w, params.s_g2), (oc.g1_neg(rhs), params.g2)])
+            )
+    if timings is not None:
+        timings.update(
+            parse=t1 - t0, prep=t2 - t1, device=t3 - t2, pairing=time.perf_counter() - t3
+        )
+    return result, efws

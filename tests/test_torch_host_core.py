@@ -1,0 +1,108 @@
+"""The kernels' arithmetic on the host: g++ builds `csrc/field.cuh`,
+`curve.cuh`, K1's lane function and K2's tape interpreter through
+`csrc/host_shim.cpp`, and each is checked against its plain PyTorch
+version, exactly (points as affine points)."""
+
+import ctypes
+import shutil
+
+import numpy as np
+import pytest
+import torch
+
+from halo2_aggregation_tpu.fields import Q, R
+from halo2_aggregation_tpu.oracle import curve as oc
+from halo2_aggregation_tpu_torch.ops import build
+from halo2_aggregation_tpu_torch.ops import curve_ops as co
+from halo2_aggregation_tpu_torch.ops import field_ops as fo
+from halo2_aggregation_tpu_torch.ops.limbs import ints_to_tensor, tensor_to_ints
+
+torch.set_num_threads(1)  # tiny tensors; the test workers share the cores
+
+RNG = np.random.default_rng(0xC0DE)
+
+
+@pytest.fixture(scope="module")
+def lib(tmp_path_factory):
+    if shutil.which("g++") is None:
+        pytest.skip("g++ is not installed")
+    return build.build_host_library(tmp_path_factory.mktemp("host_core"))
+
+
+def _ptr(t: torch.Tensor):
+    return ctypes.c_void_p(t.data_ptr())
+
+
+def _points(pts):
+    return co.affine_to_jac(co.affine_from_ints(pts, "cpu"))
+
+
+def _rand_points(n):
+    g = oc.g1_generator()
+    return [oc.g1_mul(g, int(RNG.integers(1, 1 << 62))) for _ in range(n)]
+
+
+@pytest.mark.parametrize("field", ["Fq", "Fr"])
+def test_mont_mul(lib, field):
+    spec, p = (fo.FQ, Q) if field == "Fq" else (fo.FR, R)
+    xs = [0, 1, p - 1, p - 2] + [int.from_bytes(RNG.bytes(40), "little") % p for _ in range(28)]
+    ys = [p - 1, p - 1, p - 1, 3] + [int.from_bytes(RNG.bytes(40), "little") % p for _ in range(28)]
+    a, b = ints_to_tensor(xs, "cpu"), ints_to_tensor(ys, "cpu")
+    out = torch.empty_like(a)
+    lib.h2a_host_mont_mul(int(field == "Fr"), _ptr(a), _ptr(b), _ptr(out), len(xs))
+    assert torch.equal(out, fo.mont_mul(a, b, spec))
+
+
+def test_jac_add_edge_cases(lib):
+    g = oc.g1_generator()
+    rnd = _rand_points(4)
+    pts = [g, g, None, g, None] + rnd
+    qts = [g, oc.g1_neg(g), g, None, None] + rnd[::-1]
+    P, Qp = _points(pts), _points(qts)
+    # (n, 3, 8) buffers, held in names while the library reads them
+    a, b = (torch.stack(list(J), 1).contiguous() for J in (P, Qp))
+    out = torch.empty_like(a)
+    lib.h2a_host_jac_add(_ptr(a), _ptr(b), _ptr(out), len(pts))
+    got = co.jac_to_ints(co.JacPoint(out[:, 0], out[:, 1], out[:, 2]))
+    assert got == co.jac_to_ints(co.jac_add(P, Qp))
+    assert got == [oc.g1_add(a, b) for a, b in zip(pts, qts)]
+
+
+def test_windowed_scalar_mul(lib):
+    pts = _rand_points(6) + [None, oc.g1_generator()]
+    ks = [int.from_bytes(RNG.bytes(32), "little") % R for _ in range(5)] + [(1 << 256) - 1, 9, 0]
+    P = _points(pts)
+    s = ints_to_tensor(ks, "cpu")
+    out = co.JacPoint(*(torch.empty_like(c) for c in P))
+    lib.h2a_host_ec_win(*(_ptr(c) for c in P), _ptr(s), *(_ptr(c) for c in out), len(pts))
+    got = co.jac_to_ints(out)
+    assert got == co.jac_to_ints(co.scalar_mul(P, s))
+    assert got == [oc.g1_mul(p, k) if p else None for p, k in zip(pts, ks)]
+    assert (out.z[6:] == 0).all() and (out.z[:6] != 0).any(-1).all()
+
+
+def test_tape_interpreter(lib):
+    from halo2_aggregation_tpu.models import simple_example as se
+    from halo2_aggregation_tpu.plonk import kzg
+    from halo2_aggregation_tpu.plonk.keygen import keygen
+    from halo2_aggregation_tpu_torch.plonk import fa_fused as ff
+    from halo2_aggregation_tpu_torch.plonk.verifier_device import synthetic_batch
+
+    params = kzg.setup(9)
+    circuit = se.MyCircuit(constant=7, a=2, b=3)
+    cs_e, _, asg_e = se.build(circuit.without_witnesses(), k=9)
+    vk, _ = keygen(params, cs_e, asg_e)
+    lanes = 2
+    batch = synthetic_batch(vk, lanes, "cpu", seed=11)
+    tape = ff.fa_tape(vk)
+    inputs = torch.stack(ff.fa_gather(vk, batch)).contiguous()
+    instrs, consts, outputs = tape.device_arrays("cpu")
+    tmp = torch.zeros((tape.n_temps, lanes, 8), dtype=torch.int32)
+    out = torch.empty((len(tape.outputs), lanes, 8), dtype=torch.int32)
+    lib.h2a_host_fa_tape(
+        _ptr(instrs), instrs.shape[0], _ptr(consts), _ptr(inputs), tape.n_inputs,
+        _ptr(tmp), _ptr(outputs), len(tape.outputs), _ptr(out), lanes,
+    )
+    want = ff.fa_tape_eval_plain(tape, inputs)
+    assert torch.equal(out, want)
+    assert tensor_to_ints(out[0]) != [0, 0]

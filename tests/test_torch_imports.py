@@ -1,0 +1,91 @@
+"""The port's boundaries: no JAX anywhere in the package, no CPU fallback
+for a CUDA request, no fallback when the kernels cannot be built."""
+
+import os
+import re
+import subprocess
+import sys
+import textwrap
+from pathlib import Path
+
+import pytest
+import torch
+
+from halo2_aggregation_tpu_torch import resolve_device
+from halo2_aggregation_tpu_torch.ops import build
+
+torch.set_num_threads(1)  # tiny tensors; the test workers share the cores
+
+ROOT = Path(__file__).resolve().parents[1]
+PKG = ROOT / "halo2_aggregation_tpu_torch"
+
+
+def test_package_never_imports_jax():
+    pattern = re.compile(r"^\s*(import\s+jax\b|from\s+jax\b)", re.M)
+    offenders = [
+        str(f.relative_to(ROOT))
+        for f in sorted(PKG.rglob("*.py"))
+        if pattern.search(f.read_text())
+    ]
+    assert offenders == []
+    assert not pattern.search((ROOT / "chip_smoke.py").read_text())
+
+
+def test_slice_runs_with_jax_unimportable():
+    """The card's machine has no JAX: with `sys.modules["jax"] = None`,
+    import the port and run the B = 2 main path on CPU tensors."""
+    script = textwrap.dedent(
+        """
+        import sys
+        sys.modules["jax"] = None
+        from halo2_aggregation_tpu.models import simple_example as se
+        from halo2_aggregation_tpu.plonk import kzg
+        from halo2_aggregation_tpu.plonk.keygen import keygen
+        from halo2_aggregation_tpu.plonk.prover import create_proof
+        from halo2_aggregation_tpu.plonk.verifier import verify_proof
+        from halo2_aggregation_tpu_torch.plonk.verifier_device import verify_batch
+        params = kzg.setup(9)
+        c0 = se.MyCircuit(constant=7, a=2, b=3)
+        cs_e, _, asg_e = se.build(c0.without_witnesses(), k=9)
+        vk, pk = keygen(params, cs_e, asg_e)
+        _, _, asg = se.build(c0, k=9)
+        pub = [c0.public_output()]
+        proof = create_proof(params, pk, asg, [pub], seed=7)
+        ok, efws = verify_batch(params, vk, [[pub]] * 2, [proof] * 2, device="cpu")
+        ok_h, efw = verify_proof(params, vk, [pub], proof)
+        assert ok is True and ok_h and efws == [tuple(efw)] * 2
+        assert "jax" not in {m.split(".")[0] for m, v in sys.modules.items() if v is not None}
+        print("NOJAX_OK")
+        """
+    )
+    env = dict(os.environ, PYTHONPATH=str(ROOT), OMP_NUM_THREADS="1")
+    res = subprocess.run(
+        [sys.executable, "-c", script], cwd=ROOT, env=env,
+        capture_output=True, text=True, timeout=300,
+    )
+    assert res.returncode == 0, res.stderr[-3000:]
+    assert "NOJAX_OK" in res.stdout
+
+
+def test_cuda_request_raises_without_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is visible: the no-card path does not apply")
+    with pytest.raises(RuntimeError, match="cuda"):
+        resolve_device("cuda")
+    from halo2_aggregation_tpu_torch.plonk.verifier_device import verify_batch
+
+    with pytest.raises(RuntimeError, match="cuda"):
+        verify_batch(None, None, [], [], device="cuda")
+
+
+def test_build_raises_without_nvcc(tmp_path, monkeypatch):
+    monkeypatch.setenv("PATH", str(tmp_path))
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path / "no-cuda"))
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        build.build_library(tmp_path / "kernels")
+    assert not (tmp_path / "kernels").exists() or not any((tmp_path / "kernels").rglob("*.so"))
+
+
+def test_unknown_device_rejected():
+    with pytest.raises(ValueError):
+        resolve_device("meta")
