@@ -4,9 +4,11 @@
     python3 chip_smoke.py
 
 Builds the port's kernels from `halo2_aggregation_tpu_torch/csrc`, checks
-each against its plain PyTorch version on the card, then drives the main
-path once at production size: B = 128 simple-example (k = 9) proofs folded
-into one accumulator by `verify_batch(..., aggregate=True, device="cuda")`.
+each against its plain PyTorch version on the card, then drives the port's
+two paths once each: the verifier's, B = 128 simple-example (k = 9) proofs
+folded into one accumulator by `verify_batch(..., aggregate=True,
+device="cuda")`, and the prover's, `create_proof_device(..., device="cuda")`
+with its quotient on the card.
 
 Phases (each prints on its own lines; any failure raises and exits
 nonzero before the last line):
@@ -22,7 +24,18 @@ nonzero before the last line):
      tampered proof and a wrong public input rejected, both kernels
      launched by the main path, median of 5 wall times, the stage split and
      peak device memory; then one run under torch.profiler for the
-     device's busy share and its kernels by name.
+     device's busy share and its kernels by name;
+  5. ntt: K4, K5 and K3 at k = 21 on 4 random columns against their plain
+     versions (bit for bit), intt(ntt(x)) == x, and one column's coset
+     evaluations through K4 -> K5 -> K3 against the native host engine;
+  6. quotient: the aggregation circuit's 39 columns at k = 21 (the real
+     outer proof's size) through `DeviceQuotient` (feed, finalize, 4
+     cosets), K6 against its plain version on the first, last and random
+     4,096-row windows and on every row, timings and peak memory;
+  7. prove: the prover's path, `create_proof_device` on the simple example
+     at k = 16, byte-identical to the JAX package's host
+     `create_proof_native` in the same process and accepted by
+     `verify_proof`, with K3-K6 launched during the prove.
 Then one JSON line with the kernels' numbers, and as the last line
 {"ok": true, "device": {...}}.  Exits nonzero, printing no result, when no
 CUDA device is visible.
@@ -36,6 +49,12 @@ import statistics
 import subprocess
 import sys
 import time
+
+# The port runs without JAX.  The JAX package's host modules this script
+# shares probe for it (create_proof_native's TPU quotient switch, keygen's
+# static preload), so `import jax` is made to fail: nothing of JAX loads even
+# where it is installed, and those probes take their host paths.
+sys.modules["jax"] = None
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 # the SRS cache stays inside the checkout (build/ is not committed)
@@ -363,6 +382,276 @@ def phase_profile(params, vk, insts, proofs, device):
     })
 
 
+def equal_or_raise(name: str, got, want) -> int:
+    """Largest limb difference of two int32 limb tensors; raises unless 0."""
+    import torch
+
+    err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
+    if not torch.equal(got, want):
+        bad = (got != want).any(-1).nonzero()[:8].tolist()
+        raise AssertionError(f"{name}: kernel != plain, first differing elements {bad}")
+    return err
+
+
+def host_ms(fn):
+    """(result, milliseconds) of one call on the host clock, synchronised."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def random_columns(rng, c: int, n: int):
+    """(c, n, 4) u64 canonical Montgomery values (top limb below r's)."""
+    import numpy as np
+
+    a = rng.integers(0, 1 << 63, size=(c, n, 4), dtype=np.uint64) * np.uint64(2)
+    a[..., 3] &= np.uint64(0x1FFF_FFFF_FFFF_FFFF)
+    return a
+
+
+def ntt_launches() -> dict:
+    from halo2_aggregation_tpu_torch.ops import ntt as nt
+    from halo2_aggregation_tpu_torch.plonk.quotient_program import quotient_tape_eval
+
+    return {
+        "ntt": nt.ntt_batched.launches,
+        "intt": nt.intt_batched.launches,
+        "ew": nt.ew_mul_col.launches + nt.ew_mul_scalar.launches + nt.pow_series.launches,
+        "quotient_tape": quotient_tape_eval.launches,
+    }
+
+
+def reset_ntt_launches() -> None:
+    from halo2_aggregation_tpu_torch.ops import ntt as nt
+    from halo2_aggregation_tpu_torch.plonk.quotient_program import quotient_tape_eval
+
+    for fn in (nt.ntt_batched, nt.intt_batched, nt.ew_mul_col, nt.ew_mul_scalar, nt.pow_series,
+               quotient_tape_eval):
+        fn.launches = 0
+
+
+def coset_shifts(cs, k: int) -> list:
+    """The four coset shifts g * omega_ext^j of `create_proof_native`."""
+    from halo2_aggregation_tpu.fields import FR_GENERATOR, R, fr_omega
+
+    ext_k = k + max(1, (cs.degree() - 2).bit_length())
+    return [FR_GENERATOR * pow(fr_omega(ext_k), j, R) % R for j in range(1 << (ext_k - k))]
+
+
+def phase_ntt(device, k: int = 21, cols: int = 4):
+    """K4, K5 and K3 against their plain versions on `cols` random columns
+    of size 2^k; returns the kernels' records (without launches)."""
+    import numpy as np
+    import torch
+
+    from halo2_aggregation_tpu.fields import FR_GENERATOR, R
+    from halo2_aggregation_tpu.plonk import engine
+    from halo2_aggregation_tpu_torch.ops import ntt as nt
+    from halo2_aggregation_tpu_torch.ops.limbs import port_to_u64, u64_to_port
+
+    n = 1 << k
+    rng = np.random.default_rng(SEED + k)
+    host = random_columns(rng, cols, n)
+    x = torch.from_numpy(u64_to_port(host).copy()).to(device)
+    tables = nt.NttTables(k, device)
+    shift = FR_GENERATOR * 0x1234_5678 % R
+    s = nt.mont_tensor(shift, device)
+    errs = {}
+
+    coeffs = nt.intt_batched(x.clone(), tables.inv, tables.n_inv)  # K4 + K5 (1/n)
+    want, intt_plain_ms = host_ms(lambda: nt.intt_plain(x, tables.inv, tables.n_inv))
+    errs["intt"] = equal_or_raise("K4 intt", coeffs, want)
+    del want
+    scale = nt.pow_series(shift, k, device, bitrev=True)
+    errs["pow_series"] = equal_or_raise(
+        "K5 pow_series", scale, nt.pow_series_plain(nt.mont_tensor(1, device), s, k, True))
+    scaled = nt.ew_mul_col(coeffs, scale)
+    want, ew_plain_ms = host_ms(lambda: nt.mul_plain(coeffs, scale))
+    errs["ew_mul_col"] = equal_or_raise("K5 ew_mul_col", scaled, want)
+    errs["ew_mul_scalar"] = equal_or_raise("K5 ew_mul_scalar", nt.ew_mul_scalar(x, s), nt.mul_plain(x, s))
+    evals = nt.ntt_batched(scaled.clone(), tables.fwd)
+    want, ntt_plain_ms = host_ms(lambda: nt.ntt_plain(scaled, tables.fwd))
+    errs["ntt"] = equal_or_raise("K3 ntt", evals, want)
+    del want
+    if not torch.equal(nt.intt_batched(nt.ntt_batched(coeffs.clone(), tables.fwd), tables.inv, tables.n_inv),
+                       coeffs):
+        raise AssertionError("intt(ntt(x)) != x")
+    dom = engine.NativeDomain(k)
+    host_coset = dom.coset_evals(dom.intt(host[0]), shift)
+    if not np.array_equal(port_to_u64(evals[0]), host_coset):
+        raise AssertionError("K4 -> K5 -> K3 coset evaluations != NativeDomain.coset_evals")
+
+    work = x.clone()
+    ms = {
+        "ntt": cuda_ms(lambda: nt.ntt_batched(work, tables.fwd), reps=3),
+        # K4's stages plus its K5 1/n launch
+        "intt": cuda_ms(lambda: nt.intt_batched(work, tables.inv, tables.n_inv), reps=3),
+        "ew_mul_col": cuda_ms(lambda: nt.ew_mul_col(work, scale, out=work), reps=5),
+        "ew_mul_scalar": cuda_ms(lambda: nt.ew_mul_scalar(work, s, out=work), reps=5),
+        "pow_series": cuda_ms(lambda: nt.pow_series(shift, k, device, bitrev=True), reps=5),
+    }
+    torch.cuda.synchronize()
+    emit({
+        "phase": "ntt", "k": k, "columns": cols, "tolerance": "exact: equal bits",
+        "max_abs_err": errs, "roundtrip": True, "host_coset_column_equal": True,
+        "kernel_ms": ms, "plain_ms": {"ntt": ntt_plain_ms, "intt": intt_plain_ms, "ew_mul_col": ew_plain_ms},
+    })
+    src = "halo2_aggregation_tpu_torch/csrc/"
+    return {
+        "ntt": {"name": "ntt", "route": "cuda", "source": src + "ntt.cu",
+                "replaces": "halo2_aggregation_tpu/ops/ntt_pallas.py:117",
+                "max_abs_err": errs["ntt"], "ms": ms["ntt"], "plain_ms": ntt_plain_ms},
+        "intt": {"name": "intt", "route": "cuda", "source": src + "ntt.cu",
+                 "replaces": "halo2_aggregation_tpu/ops/ntt_pallas.py:308",
+                 "max_abs_err": errs["intt"], "ms": ms["intt"], "plain_ms": intt_plain_ms},
+        "ew": {"name": "ew", "route": "cuda", "source": src + "ew.cu",
+               "replaces": "halo2_aggregation_tpu/ops/ntt_pallas.py:179",
+               "max_abs_err": max(errs["ew_mul_col"], errs["ew_mul_scalar"], errs["pow_series"]),
+               "ms": ms["ew_mul_col"], "plain_ms": ew_plain_ms},
+    }
+
+
+def phase_quotient(device, k: int = 21):
+    """The aggregation circuit's full quotient width at size 2^k through
+    DeviceQuotient; K6 against its plain version.  Returns K6's record."""
+    import numpy as np
+    import torch
+
+    from halo2_aggregation_tpu.fields import R
+    from halo2_aggregation_tpu.models import aggregation_circuit as ac
+    from halo2_aggregation_tpu.plonk.circuit import ConstraintSystem
+    from halo2_aggregation_tpu_torch.ops import ntt as nt
+    from halo2_aggregation_tpu_torch.ops.limbs import u64_to_port
+    from halo2_aggregation_tpu_torch.plonk import quotient_program as qp
+    from halo2_aggregation_tpu_torch.plonk.quotient_device import DeviceQuotient
+
+    cs = ConstraintSystem()
+    ac.configure(cs)
+    n = 1 << k
+    rng = np.random.default_rng(SEED + 100 + k)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    reset_ntt_launches()
+    dq = DeviceQuotient(cs, k, device)
+    cols = {key: random_columns(rng, 1, n)[0] for key in dq.key_order}
+    t0 = time.perf_counter()
+    for key in dq.key_order:
+        dq.feed_evals(key, cols[key])
+    dq.finalize()
+    torch.cuda.synchronize()
+    finalize_s = time.perf_counter() - t0
+    ch = dict(theta=int(rng.integers(1 << 62)), beta=int(rng.integers(1 << 62)),
+              gamma=int(rng.integers(1 << 62)), y=int(rng.integers(1 << 62)))
+    shifts = coset_shifts(cs, k)
+    coset_s, outs = [], []
+    for shift in shifts:
+        t0 = time.perf_counter()
+        outs.append(dq.run_coset(shift, **ch))
+        coset_s.append(time.perf_counter() - t0)
+    launches = ntt_launches()
+    peak = torch.cuda.max_memory_allocated(device)
+
+    # K6 against its plain version on the last coset (dq.ext holds it)
+    shift = shifts[-1]
+    x = nt.ew_mul_scalar(dq.omega_pows, nt.mont_tensor(shift, device))
+    vinv = pow((pow(shift, n, R) - 1) % R, -1, R)
+    uniforms = torch.stack([nt.mont_tensor(v, device) for v in (*ch.values(), vinv)])
+    got = torch.from_numpy(u64_to_port(outs[-1]).copy()).to(device)
+    w = min(4096, n // 4)
+    start = int(rng.integers(w, n - 2 * w))
+    windows = {"first": (0, w), "last": (n - w, n), "random": (start, start + w)}
+    for name, (a, b) in windows.items():
+        rows = torch.arange(a, b, device=device)
+        equal_or_raise(f"K6 rows {name} [{a}, {b})",
+                       got[a:b], qp.quotient_tape_eval_plain(dq.program, dq.ext, x, uniforms, rows))
+    want, plain_ms = host_ms(lambda: qp.quotient_tape_eval_plain(
+        dq.program, dq.ext, x, uniforms, torch.arange(n, device=device), chunk=1 << 17))
+    err = equal_or_raise("K6 all rows", got, want)
+    del want
+    ms = {
+        "quotient_tape": cuda_ms(lambda: qp.quotient_tape_eval(dq.program, dq.ext, x, uniforms), reps=3),
+        "ntt": cuda_ms(lambda: nt.ntt_batched(dq.ext, dq.tables.fwd), reps=2),
+        "intt": cuda_ms(lambda: nt.intt_batched(dq.ext, dq.tables.inv, dq.tables.n_inv), reps=2),
+        "ew_mul_col": cuda_ms(lambda: nt.ew_mul_col(dq.stack, x, out=dq.ext), reps=3),
+    }
+    torch.cuda.synchronize()
+    emit({
+        "phase": "quotient", "circuit": "aggregation (ac.configure)", "k": k,
+        "columns": len(dq.key_order), "leaves": len(dq.schedule),
+        "tape_instrs": int(dq.program.tape.instrs.shape[0]), "tape_temps": dq.program.tape.n_temps,
+        "finalize_s": finalize_s, "coset_s": coset_s, "coset_s_median": statistics.median(coset_s),
+        "k6_windows_equal": list(windows), "k6_all_rows_equal": True, "tolerance": "exact: equal bits",
+        "kernel_ms": ms, "k6_plain_ms_all_rows": plain_ms,
+        "peak_device_mib": peak / 2**20, "launches": launches,
+    })
+    return {"name": "quotient_tape", "route": "cuda",
+            "source": "halo2_aggregation_tpu_torch/csrc/quotient_tape.cu",
+            "replaces": "halo2_aggregation_tpu/plonk/quotient_device.py:803",
+            "max_abs_err": err, "ms": ms["quotient_tape"], "plain_ms": plain_ms}
+
+
+def phase_prove(device, k: int = 16) -> dict:
+    """The prover's path: create_proof_device on the card against the JAX
+    package's host create_proof_native.  Returns the K3-K6 launch counts
+    of the device prove."""
+    import torch
+
+    from halo2_aggregation_tpu.models import simple_example as se
+    from halo2_aggregation_tpu.plonk import kzg
+    from halo2_aggregation_tpu.plonk.keygen import keygen_native
+    from halo2_aggregation_tpu.plonk.prover_native import create_proof_native
+    from halo2_aggregation_tpu.plonk.verifier import verify_proof
+    from halo2_aggregation_tpu_torch.plonk.prover_device import create_proof_device
+
+    t0 = time.perf_counter()
+    params = kzg.setup(k)
+    circuit = se.MyCircuit(constant=7, a=2, b=3)
+    cs_e, _, asg_e = se.build(circuit.without_witnesses(), k=k)
+    vk, pk = keygen_native(params, cs_e, asg_e)
+    setup_s = time.perf_counter() - t0
+    pub = [circuit.public_output()]
+
+    def prove(fn, **kw):
+        stages = []
+        last = [time.perf_counter()]
+
+        def log(msg):
+            now = time.perf_counter()
+            stages.append([msg, now - last[0]])
+            last[0] = now
+
+        _, _, asg = se.build(circuit, k=k)
+        t0 = time.perf_counter()
+        proof = fn(params, pk, asg, [pub], seed=42, progress=log, **kw)
+        torch.cuda.synchronize()
+        return proof, time.perf_counter() - t0, stages
+
+    ref, host_s, host_stages = prove(create_proof_native)
+    torch.cuda.synchronize()
+    reset_ntt_launches()
+    got, dev_s, dev_stages = prove(create_proof_device, device=device)
+    launches = ntt_launches()
+    if min(launches.values()) < 1:
+        raise AssertionError(f"a kernel of the prover's path was not launched: {launches}")
+    if got != ref:
+        raise AssertionError("create_proof_device bytes != create_proof_native")
+    ok, _ = verify_proof(params, vk, [pub], got)
+    if not ok:
+        raise AssertionError("verify_proof rejected the device proof")
+    emit({
+        "phase": "prove", "circuit": "simple example", "k": k, "proof_bytes": len(got),
+        "equal_to_create_proof_native": True, "verified": True, "setup_keygen_s": setup_s,
+        "device_prove_s": dev_s, "host_prove_s": host_s, "launches": launches,
+        # [progress message, seconds since the previous one]
+        "device_stages": dev_stages, "host_stages": host_stages,
+    })
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -374,19 +663,40 @@ def main() -> int:
     import halo2_aggregation_tpu_torch  # noqa: F401
 
     device = torch.device("cuda", 0)
+    seconds = {}
+    last = [time.perf_counter()]
+
+    def done(phase):
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        seconds[phase] = now - last[0]
+        last[0] = now
+
     phase_card()
     phase_build()
-    torch.cuda.synchronize()
+    done("card+build")
     k1 = phase_k1(device)
-    torch.cuda.synchronize()
+    done("k1")
     params, vk, protos = make_proofs()
     k2 = phase_k2(params, vk, protos, device)
-    torch.cuda.synchronize()
+    done("k2")
     launches = phase_main(params, vk, protos, device)
-    torch.cuda.synchronize()
+    done("main+profile")
     k1["launches"] = launches["ec_win"]
     k2["launches"] = launches["fa_tape"]
-    emit({"kernels": [k1, k2]})
+    recs = phase_ntt(device)
+    done("ntt")
+    recs["quotient_tape"] = phase_quotient(device)
+    done("quotient")
+    prove_launches = phase_prove(device)
+    done("prove")
+    emit({"phase_seconds": seconds, "total_s": sum(seconds.values())})
+    for name, rec in recs.items():
+        rec["launches"] = prove_launches[name]
+    emit({"kernels": [k1, k2, *recs.values()]})
+    loaded = sorted(m for m, v in sys.modules.items() if v is not None and m.split(".")[0] == "jax")
+    if loaded:
+        raise AssertionError(f"JAX modules were loaded: {loaded[:5]}")
     emit({
         "ok": True,
         "device": {

@@ -1,11 +1,14 @@
 """State carried over from the JAX package into the port.
 
-The vk, `Params` and proofs are shared host objects, so only the JAX
-package's limb arrays need converting: its `VerifierBatch` (with numpy or
-jax array leaves) and its point and scalar arrays, from `(..., 32)` 8-bit
-limbs to the port's `(..., 8)` 32-bit limbs.  Montgomery form is the same
-(R = 2^256), so this is repacking only.  Nothing here imports jax: the
-JAX objects are read by attribute and through `np.asarray`.
+The vk, `pk`, `Params`, assignments and proofs are shared host objects,
+so only the JAX package's limb arrays need converting: its `VerifierBatch`
+(with numpy or jax array leaves), its point and scalar arrays, the
+quotient engine's coefficient columns and the NTT plan's twiddle tables,
+from `(..., 32)` 8-bit limbs to the port's `(..., 8)` 32-bit limbs.
+Montgomery form is the same (R = 2^256), so this is repacking (and, for
+the quotient columns, the bit-reversal permutation) only.  Nothing here
+imports jax: the JAX objects are read by attribute and through
+`np.asarray`.
 """
 
 from __future__ import annotations
@@ -18,6 +21,7 @@ from halo2_aggregation_tpu.plonk.protocol import LookupEvals, PermutationSetEval
 from .device import resolve_device
 from .ops.curve_ops import JacPoint
 from .ops.limbs import jax_to_port
+from .ops.ntt import bit_reverse_indices
 from .plonk.verifier_device import VerifierBatch
 
 
@@ -76,3 +80,29 @@ def from_jax_batch(jb, device) -> VerifierBatch:
         h_comms=[P(p) for p in jb.h_comms],
         w_comms=[P(p) for p in jb.w_comms],
     )
+
+
+def quotient_columns_from_jax(dq_jax) -> torch.Tensor:
+    """The JAX `DeviceQuotient`'s CPU-path `store` (packed (n, 32) u8
+    natural-order Montgomery coefficient columns,
+    `quotient_device.py:408,446-448`) -> the port's resident (C, n, 8)
+    stack: the same columns in `key_order`, coefficients bit-reversed
+    (`DeviceQuotient.finalize_coefficients` takes it)."""
+    cols = [np.asarray(dq_jax.store[key], dtype=np.uint8) for key in dq_jax.key_order]
+    stack = np.ascontiguousarray(np.stack(cols)).view("<i4").reshape(len(cols), dq_jax.n, 8)
+    return torch.from_numpy(np.ascontiguousarray(stack[:, bit_reverse_indices(dq_jax.k)]))
+
+
+def twiddles_from_jax(plan, device="cpu") -> torch.Tensor:
+    """JAX `ops/ntt.py::NttPlan.stage_twiddles` ((2^s, 32) 8-bit limbs per
+    stage s) -> the port's one natural-order table of root powers,
+    (n/2, 8) (`ops/ntt.py::NttTables`).  The last stage's table is that
+    table; every other stage's must be its stride-2^(k-1-s) slice, and a
+    plan whose tables disagree raises."""
+    stages = [jax_to_port(np.asarray(t)) for t in plan.stage_twiddles]
+    table = stages[-1]
+    k = len(stages)
+    for s, t in enumerate(stages):
+        if not np.array_equal(t, table[:: 1 << (k - 1 - s)]):
+            raise ValueError(f"stage {s} table is not a slice of the last stage's")
+    return torch.from_numpy(np.ascontiguousarray(table)).to(resolve_device(device))

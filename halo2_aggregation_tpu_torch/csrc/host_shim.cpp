@@ -1,9 +1,12 @@
 // Host build of the kernels' arithmetic: g++ compiles the same headers the
-// CUDA kernels use, so the CPU tests check K1's and K2's per-lane code
-// without a card (tests/test_torch_host_core.py).  Not part of the CUDA
-// library.  Layouts match the kernels': elements are 8 x 32-bit limbs.
+// CUDA kernels use, so the CPU tests check K1's, K2's and K6's per-lane code
+// and the NTT butterflies and index maps of K3-K5 without a card
+// (tests/test_torch_host_core.py).  Not part of the CUDA library.  Layouts
+// match the kernels': elements are 8 x 32-bit limbs.
 #include "ec_win.cuh"
 #include "fa_tape.cuh"
+#include "ntt.cuh"
+#include "quotient_tape.cuh"
 
 using namespace h2a;
 
@@ -68,6 +71,52 @@ void h2a_host_fa_tape(const int32_t* tape, int n_instr, const uint32_t* consts,
   for (int lane = 0; lane < lanes; lane++) {
     TapeRegs R{consts, in, tmp, n_in, lanes, lane};
     fa_tape_lane(tape, n_instr, R, out_regs, n_out, out);
+  }
+}
+
+// Stage s of a size-2^k transform over `cols` columns of x (cols, n, 8), in
+// place, through ntt_pair and the DIT (dif == 0) or DIF butterfly: the
+// loop body of K3 / K4.
+void h2a_host_ntt_stage(uint32_t* x, const uint32_t* tw, int cols, int k,
+                        int s, int dif) {
+  for (int c = 0; c < cols; c++) {
+    uint32_t* col = x + ((size_t)c << k) * NL;
+    for (uint32_t t = 0; t < (1u << (k - 1)); t++) {
+      NttPair p = ntt_pair(k, s, t);
+      Fe lo = load(col + (size_t)p.lo * NL), hi = load(col + (size_t)p.hi * NL);
+      Fe w = load(tw + (size_t)p.tw * NL);
+      if (dif) {
+        dif_butterfly(lo, hi, w);
+      } else {
+        dit_butterfly(lo, hi, w);
+      }
+      store(col + (size_t)p.lo * NL, lo);
+      store(col + (size_t)p.hi * NL, hi);
+    }
+  }
+}
+
+// out[i] = start * base^idx(i), i < 2^k: K5's pow_series element.
+void h2a_host_pow_series(uint32_t* out, const uint32_t* start,
+                         const uint32_t* base, int k, int bitrev) {
+  for (uint32_t i = 0; i < (1u << k); i++) {
+    uint32_t e = (bitrev && k > 0) ? bit_reverse(i, k) : i;
+    store(out + (size_t)i * NL, fe_pow_times(load(start), load(base), e, k));
+  }
+}
+
+// K6's lane on the listed rows: out[j] = quotient numerator of rows[j].
+void h2a_host_quotient_rows(const int32_t* tape, int n_instr,
+                            const uint32_t* consts, const int32_t* in_src,
+                            const int32_t* in_rot, int n_in,
+                            const uint32_t* stack, const uint32_t* x,
+                            const uint32_t* uniforms, int n, int out_reg,
+                            const int32_t* rows, int n_rows, uint32_t* out) {
+  Fe tmp[QT_MAX_TEMPS];
+  for (int j = 0; j < n_rows; j++) {
+    QuotientRegs R{consts, in_src, in_rot, stack, x, uniforms,
+                   n_in, (uint32_t)n, (uint32_t)rows[j], tmp};
+    store(out + (size_t)j * NL, quotient_lane(tape, n_instr, R, out_reg));
   }
 }
 

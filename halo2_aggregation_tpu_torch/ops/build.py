@@ -1,8 +1,9 @@
 """Build and load the CUDA kernels (`csrc/*.cu`).
 
-nvcc compiles the sources into one shared library with a plain C
-interface for sm_90a (H100), into `build/kernels/<hash>/` at the root of
-the checkout, keyed by a hash of the sources and flags, at first use.
+nvcc compiles each source to an object for sm_90a (H100), all sources at
+once in parallel processes, and links the objects into one shared library
+with a plain C interface, in `build/kernels/<hash>/` at the root of the
+checkout, keyed by a hash of the sources and flags, at first use.
 `ctypes` loads it; every pointer and the stream pass as `c_void_p`, and
 every entry point returns `cudaGetLastError()`, which `check` turns into an
 exception.  PyTorch's headers are not included, which keeps a build to
@@ -27,20 +28,32 @@ import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "kernels"
-KERNEL_SOURCES = ("ec_win.cu", "fa_tape.cu")
+KERNEL_SOURCES = ("ec_win.cu", "fa_tape.cu", "ntt.cu", "ew.cu", "quotient_tape.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 LIB_NAME = "libh2a_kernels.so"
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
 _SIGNATURES = {
     # px, py, pz, scalars, ox, oy, oz, n, stream
     "h2a_ec_win": [_P, _P, _P, _P, _P, _P, _P, _I, _P],
     # tape, n_instr, consts, in, n_in, tmp, out_regs, n_out, out, lanes, stream
     "h2a_fa_tape": [_P, _I, _P, _P, _I, _P, _P, _I, _P, _I, _P],
+    # x, tw, cols, k, s, dif, stream
+    "h2a_ntt_stage": [_P, _P, _I, _I, _I, _I, _P],
+    # x, col, out, cols, n, stream
+    "h2a_ew_mul_col": [_P, _P, _P, _I, _I, _P],
+    # x, s, out, total, stream
+    "h2a_ew_mul_scalar": [_P, _P, _P, _L, _P],
+    # out, start, base, k, bitrev, stream
+    "h2a_pow_series": [_P, _P, _P, _I, _I, _P],
+    # tape, n_instr, consts, in_src, in_rot, n_in, stack, x, uniforms, n,
+    # out_reg, out, stream
+    "h2a_quotient_tape": [_P, _I, _P, _P, _P, _I, _P, _P, _P, _I, _I, _P, _P],
 }
 
 
@@ -67,7 +80,8 @@ def _source_hash() -> str:
 
 
 def build_library(build_root: Path = BUILD_ROOT) -> Path:
-    """Compile the kernels unless this source hash is built already.
+    """Compile the kernels unless this source hash is built already: one
+    nvcc process per source, all started together, then one link.
     Returns the library's path; nvcc's ptxas report (registers, spills)
     is kept beside it as `ptxas.log`."""
     out_dir = Path(build_root) / _source_hash()
@@ -76,17 +90,31 @@ def build_library(build_root: Path = BUILD_ROOT) -> Path:
         return lib
     nvcc = find_nvcc()
     out_dir.mkdir(parents=True, exist_ok=True)
-    tmp = out_dir / f"{LIB_NAME}.{os.getpid()}.tmp"
-    cmd = [nvcc, *NVCC_FLAGS, f"-I{CSRC}", "-o", str(tmp)]
-    cmd += [str(CSRC / s) for s in KERNEL_SOURCES]
+    tag = f"{os.getpid()}.tmp"
     t0 = time.perf_counter()
+    jobs = []
+    for src in KERNEL_SOURCES:
+        obj = out_dir / f"{Path(src).stem}.{tag}.o"
+        cmd = [nvcc, *NVCC_FLAGS, f"-I{CSRC}", "-c", "-o", str(obj), str(CSRC / src)]
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        jobs.append((cmd, obj, proc))
+    log, failed = [], []
+    for cmd, _, proc in jobs:
+        out, _ = proc.communicate()
+        log.append(f"# {' '.join(cmd)}\n{out}")
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{out}")
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    tmp = out_dir / f"{LIB_NAME}.{tag}"
+    cmd = [nvcc, "-shared", "-o", str(tmp), *(str(obj) for _, obj, _ in jobs)]
     res = subprocess.run(cmd, capture_output=True, text=True)
     if res.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({res.returncode}):\n{' '.join(cmd)}\n{res.stdout}\n{res.stderr}"
-        )
+        raise RuntimeError(f"nvcc link failed ({res.returncode}):\n{' '.join(cmd)}\n{res.stdout}\n{res.stderr}")
+    for _, obj, _ in jobs:
+        obj.unlink()
     (out_dir / "ptxas.log").write_text(
-        f"# {time.perf_counter() - t0:.1f} s: {' '.join(cmd)}\n{res.stdout}{res.stderr}"
+        f"# {time.perf_counter() - t0:.1f} s: {len(jobs)} sources in parallel, then link\n" + "".join(log)
     )
     os.replace(tmp, lib)
     return lib
@@ -134,6 +162,9 @@ def build_host_library(out_dir) -> ctypes.CDLL:
         "h2a_host_jac_add": [_P, _P, _P, _I],
         "h2a_host_ec_win": [_P, _P, _P, _P, _P, _P, _P, _I],
         "h2a_host_fa_tape": [_P, _I, _P, _P, _I, _P, _P, _I, _P, _I],
+        "h2a_host_ntt_stage": [_P, _P, _I, _I, _I, _I],
+        "h2a_host_pow_series": [_P, _P, _P, _I, _I],
+        "h2a_host_quotient_rows": [_P, _I, _P, _P, _P, _I, _P, _P, _P, _I, _I, _P, _I, _P],
     }
     for name, argtypes in sigs.items():
         fn = getattr(lib, name)

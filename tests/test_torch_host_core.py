@@ -1,7 +1,8 @@
 """The kernels' arithmetic on the host: g++ builds `csrc/field.cuh`,
-`curve.cuh`, K1's lane function and K2's tape interpreter through
-`csrc/host_shim.cpp`, and each is checked against its plain PyTorch
-version, exactly (points as affine points)."""
+`curve.cuh`, K1's lane function, the tape interpreter of K2 and K6, and
+the NTT butterflies, stage index maps and power-series element of K3-K5
+(`ntt.cuh`) through `csrc/host_shim.cpp`, and each is checked against its
+plain PyTorch version, exactly (points as affine points)."""
 
 import ctypes
 import shutil
@@ -106,3 +107,72 @@ def test_tape_interpreter(lib):
     want = ff.fa_tape_eval_plain(tape, inputs)
     assert torch.equal(out, want)
     assert tensor_to_ints(out[0]) != [0, 0]
+
+
+def _rand_stack(rng, c, n) -> torch.Tensor:
+    """(c, n, 8) canonical values (top 32-bit limb below r's)."""
+    a = rng.integers(0, 1 << 32, size=(c, n, 8), dtype=np.uint64)
+    a[..., 7] &= 0x1FFF_FFFF
+    return torch.from_numpy(a.astype(np.uint32).view(np.int32))
+
+
+def test_ntt_stages(lib):
+    """A full k = 7 NTT and INTT through the host-built butterflies and
+    stage index maps, stage by stage as the CUDA wrappers launch them."""
+    from halo2_aggregation_tpu_torch.ops import ntt as nt
+
+    k, cols = 7, 3
+    tables = nt.NttTables(k, "cpu")
+    x = _rand_stack(RNG, cols, 1 << k)
+    fwd = x.clone()
+    for s in range(k):
+        lib.h2a_host_ntt_stage(_ptr(fwd), _ptr(tables.fwd), cols, k, s, 0)
+    assert torch.equal(fwd, nt.ntt_plain(x, tables.fwd))
+    inv = x.clone()
+    for s in range(k - 1, -1, -1):
+        lib.h2a_host_ntt_stage(_ptr(inv), _ptr(tables.inv), cols, k, s, 1)
+    ninv = tables.n_inv.expand_as(inv).contiguous()
+    lib.h2a_host_mont_mul(1, _ptr(inv), _ptr(ninv), _ptr(inv), inv.numel() // 8)
+    assert torch.equal(inv, nt.intt_plain(x, tables.inv, tables.n_inv))
+    # the index map itself: every element in exactly one pair per stage
+    for s in range(k):
+        lo, hi, tw = nt.stage_pairs(k, s, "cpu")
+        assert sorted(torch.cat([lo, hi]).tolist()) == list(range(1 << k))
+        assert int(tw.max()) < (1 << (k - 1))
+
+
+@pytest.mark.parametrize("bitrev", [False, True])
+def test_pow_series_element(lib, bitrev):
+    from halo2_aggregation_tpu_torch.ops import ntt as nt
+
+    k = 6
+    start, base = nt.mont_tensor(5, "cpu"), nt.mont_tensor(R - 3, "cpu")
+    out = torch.empty((1 << k, 8), dtype=torch.int32)
+    lib.h2a_host_pow_series(_ptr(out), _ptr(start), _ptr(base), k, int(bitrev))
+    assert torch.equal(out, nt.pow_series(R - 3, k, "cpu", start=5, bitrev=bitrev))
+
+
+def test_quotient_lane(lib):
+    """K6's lane on rows 0, 1, n-1 and a middle row of the simple
+    example's quotient tape, against the plain tape."""
+    from halo2_aggregation_tpu.models import simple_example as se
+    from halo2_aggregation_tpu_torch.ops.ntt import mont_tensor
+    from halo2_aggregation_tpu_torch.plonk import quotient_program as qp
+
+    cs, _, _ = se.build(se.MyCircuit(constant=7, a=2, b=3).without_witnesses(), k=9)
+    qt = qp.quotient_tape(cs)
+    n = 1 << 6
+    C = int(qt.sources[:, 0].max()) + 1
+    stack, x = _rand_stack(RNG, C, n), _rand_stack(RNG, 1, n)[0]
+    uniforms = torch.stack([mont_tensor(v, "cpu") for v in (2, 3, 5, 7, 11)])
+    rows = torch.tensor([0, 1, n - 1, n // 2], dtype=torch.int32)
+    instrs, consts, _ = qt.tape.device_arrays("cpu")
+    src, rot = qt.device_arrays("cpu")
+    out = torch.empty((len(rows), 8), dtype=torch.int32)
+    lib.h2a_host_quotient_rows(
+        _ptr(instrs), instrs.shape[0], _ptr(consts), _ptr(src), _ptr(rot), qt.tape.n_inputs,
+        _ptr(stack), _ptr(x), _ptr(uniforms), n, qt.tape.outputs[0], _ptr(rows), len(rows), _ptr(out),
+    )
+    want = qp.quotient_tape_eval_plain(qt, stack, x, uniforms, rows.long())
+    assert torch.equal(out, want)
+    assert len(set(tensor_to_ints(out))) == len(rows)

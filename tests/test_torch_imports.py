@@ -33,7 +33,9 @@ def test_package_never_imports_jax():
 
 def test_slice_runs_with_jax_unimportable():
     """The card's machine has no JAX: with `sys.modules["jax"] = None`,
-    import the port and run the B = 2 main path on CPU tensors."""
+    import the port, run the B = 2 main path and prove with
+    `create_proof_device` on CPU tensors (bytes equal to the JAX package's
+    host `create_proof_native`, which then runs its host coset loop)."""
     script = textwrap.dedent(
         """
         import sys
@@ -54,6 +56,12 @@ def test_slice_runs_with_jax_unimportable():
         ok, efws = verify_batch(params, vk, [[pub]] * 2, [proof] * 2, device="cpu")
         ok_h, efw = verify_proof(params, vk, [pub], proof)
         assert ok is True and ok_h and efws == [tuple(efw)] * 2
+        from halo2_aggregation_tpu.plonk.prover_native import create_proof_native
+        from halo2_aggregation_tpu_torch.plonk.prover_device import create_proof_device
+        _, _, asg = se.build(c0, k=9)
+        dev = create_proof_device(params, pk, asg, [pub], seed=7, device="cpu")
+        _, _, asg = se.build(c0, k=9)
+        assert dev == create_proof_native(params, pk, asg, [pub], seed=7) == proof
         assert "jax" not in {m.split(".")[0] for m, v in sys.modules.items() if v is not None}
         print("NOJAX_OK")
         """
