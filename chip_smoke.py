@@ -5,10 +5,12 @@
 
 Builds the port's kernels from `halo2_aggregation_tpu_torch/csrc`, checks
 each against its plain PyTorch version on the card, then drives the port's
-two paths once each: the verifier's, B = 128 simple-example (k = 9) proofs
-folded into one accumulator by `verify_batch(..., aggregate=True,
-device="cuda")`, and the prover's, `create_proof_device(..., device="cuda")`
-with its quotient on the card.
+paths: the verifier's, B = 128 simple-example (k = 9) proofs folded into
+one accumulator by `verify_batch(..., aggregate=True, device="cuda")`
+(with K1, then with K8), the SRS commitments of `DeviceSRS` at the outer
+proof's n = 2^21 (K7 and K9), and the prover's, `keygen_device` and
+`create_proof_device(..., device="cuda")` with the quotient and every
+commitment on the card.
 
 Phases (each prints on its own lines; any failure raises and exits
 nonzero before the last line):
@@ -16,15 +18,18 @@ nonzero before the last line):
   1. kernel build (nvcc), timed, with ptxas' register and spill report;
   2. K1 (windowed scalar-mul) at the main path's 4,608 lanes against its
      plain version (affine equality), 16 lanes against the oracle, and a
-     ragged lane count against the full launch;
+     ragged lane count against the full launch; K8 (bit-serial ladder) on
+     the same lanes at 256 bits against K1 and its plain version, and
+     ragged against full;
   3. K2 (field-algebra tape) on a real B = 128 batch against its plain
      version (bit for bit), 8 lanes against the host IntOps formulas, and
      a ragged batch against the full launch;
   4. the main path: result True, quads equal the host `verify_proof`, a
      tampered proof and a wrong public input rejected, both kernels
      launched by the main path, median of 5 wall times, the stage split and
-     peak device memory; then one run under torch.profiler for the
-     device's busy share and its kernels by name;
+     peak device memory; once more with method="ladder" (K8), with the
+     same quads; then one run under torch.profiler for the device's busy
+     share and its kernels by name;
   5. ntt: K4, K5 and K3 at k = 21 on 4 random columns against their plain
      versions (bit for bit), intt(ntt(x)) == x, and one column's coset
      evaluations through K4 -> K5 -> K3 against the native host engine;
@@ -32,10 +37,22 @@ nonzero before the last line):
      outer proof's size) through `DeviceQuotient` (feed, finalize, 4
      cosets), K6 against its plain version on the first, last and random
      4,096-row windows and on every row, timings and peak memory;
-  7. prove: the prover's path, `create_proof_device` on the simple example
-     at k = 16, byte-identical to the JAX package's host
+  7. msm: `DeviceSRS` at n = 2^21 (the outer proof's size): K7 and K9
+     commitments of a random column, an all-zero column (None) and a
+     one-hot column (that SRS point) equal the native host MSM's, with the
+     SRS upload, kernel and host times and peak memory; at the prove's
+     n = 2^16 K7 and K9 against their plain versions and the native MSM
+     (the `kernels` line's times); then at n = 2^14 - 3
+     (ragged) K7 and K9 against their plain versions and the native MSM on
+     edge lanes (infinity flags, zero scalars, 1, r - 1, 2^254 - 1 mod r, a
+     point, its negation and repeats in one chunk: the identity and
+     doubling branches);
+  8. prove: the prover's path at k = 16 on the simple example:
+     `keygen_device` with the vk of the JAX package's host `keygen_native`,
+     then `create_proof_device` sharing its `DeviceSRS`, byte-identical to
      `create_proof_native` in the same process and accepted by
-     `verify_proof`, with K3-K6 launched during the prove.
+     `verify_proof`, with K7 launched once per commitment and K3-K6
+     launched during the prove.
 Then one JSON line with the kernels' numbers, and as the last line
 {"ok": true, "device": {...}}.  Exits nonzero, printing no result, when no
 CUDA device is visible.
@@ -206,6 +223,40 @@ def phase_k1(device):
         "phase": "k1", "lanes": n, "doubling_cases": n_special, "oracle_lanes": 16,
         "tolerance": "exact: equal affine points", **rec,
     })
+    return rec, phase_k8(P, s, got)
+
+
+def phase_k8(P, s, k1_affine):
+    """K8 on K1's lanes over all 256 bits (the lanes hold 2^256 - 1):
+    affine-equal to K1 and to its plain version; ragged equals full."""
+    import torch
+
+    from halo2_aggregation_tpu_torch.ops import curve_ops as co
+    from halo2_aggregation_tpu_torch.ops.ec_kernels import scalar_mul_ladder
+
+    n = P.x.shape[0]
+    out = scalar_mul_ladder(P, s, 256)
+    m = n - 5
+    ragged = scalar_mul_ladder(co.JacPoint(*(c[:m] for c in P)), s[:m], 256)
+    if not all(torch.equal(a, b[:m]) for a, b in zip(ragged, out)):
+        raise AssertionError("K8 on a ragged lane count != the full launch")
+    ref, plain_ms = host_ms(lambda: co.scalar_mul_ladder(P, s, 256))
+    got, want = co.jac_to_ints(out), co.jac_to_ints(ref)
+    err = max_abs_err(got, want)
+    if got != want:
+        bad = [i for i, (a, b) in enumerate(zip(got, want)) if a != b]
+        raise AssertionError(f"K8 != plain on {len(bad)} lanes, first {bad[:8]}")
+    if got != k1_affine:
+        raise AssertionError("K8 != K1 on the same lanes")
+    ms = cuda_ms(lambda: scalar_mul_ladder(P, s, 256), reps=3)
+    rec = {
+        "name": "ec_ladder", "route": "cuda",
+        "source": "halo2_aggregation_tpu_torch/csrc/ec_ladder.cu",
+        "replaces": "halo2_aggregation_tpu/ops/ec_pallas.py:317",
+        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+    }
+    emit({"phase": "k8", "lanes": n, "nbits": 256, "equal_to_k1": True,
+          "tolerance": "exact: equal affine points", **rec})
     return rec
 
 
@@ -282,7 +333,7 @@ def phase_main(params, vk, protos, device):
     import torch
 
     from halo2_aggregation_tpu.plonk.verifier import verify_proof
-    from halo2_aggregation_tpu_torch.ops.ec_kernels import scalar_mul_win
+    from halo2_aggregation_tpu_torch.ops.ec_kernels import scalar_mul_ladder, scalar_mul_win
     from halo2_aggregation_tpu_torch.plonk.fa_fused import fa_tape_eval
     from halo2_aggregation_tpu_torch.plonk.verifier_device import verify_batch
 
@@ -299,10 +350,26 @@ def phase_main(params, vk, protos, device):
         raise AssertionError(f"aggregate check returned {ok!r}")
     if min(launches.values()) < 1:
         raise AssertionError(f"a kernel of the main path was not launched: {launches}")
+    host_quads = []
     for i, (pub, proof) in enumerate(protos):
         ok_h, efw = verify_proof(params, vk, pub, proof)
         if not ok_h or tuple(efw) != tuple(efws[i]):
             raise AssertionError(f"quad of proof {i} != host verify_proof")
+        host_quads.append(tuple(efw))
+
+    # the same path with the bit-serial ladder (K8) in place of K1
+    scalar_mul_ladder.launches = 0
+    t0 = time.perf_counter()
+    ok_l, efws_l = verify_batch(params, vk, insts, proofs, device=device, aggregate=True, method="ladder")
+    torch.cuda.synchronize()
+    ladder_wall = time.perf_counter() - t0
+    launches["ec_ladder"] = scalar_mul_ladder.launches
+    if ok_l is not True:
+        raise AssertionError(f"aggregate check with method='ladder' returned {ok_l!r}")
+    if launches["ec_ladder"] < 1:
+        raise AssertionError("K8 was not launched by the ladder run of the main path")
+    if [tuple(q) for q in efws_l[: len(protos)]] != host_quads or efws_l != efws:
+        raise AssertionError("quads with method='ladder' != host verify_proof")
 
     # tampered inputs at a small batch: one flipped proof byte, one wrong
     # public input; each must fail the aggregate check or fail to parse
@@ -337,7 +404,8 @@ def phase_main(params, vk, protos, device):
     split = {k: statistics.median(r[k] for r in runs) for k in ("parse", "prep", "device", "pairing")}
     emit({
         "phase": "main", "batch": B, "k": K, "ok": ok, "launches": launches,
-        "quads_match_host": len(protos), "rejected": rejected,
+        "quads_match_host": len(protos), "ladder_ok": ok_l, "ladder_wall_s": ladder_wall,
+        "rejected": rejected,
         "wall_s_median": wall, "wall_s_runs": [r["wall"] for r in runs],
         "proofs_per_s": B / wall, "stage_s_median": split,
         "peak_device_mib": torch.cuda.max_memory_allocated(device) / 2**20,
@@ -594,10 +662,194 @@ def phase_quotient(device, k: int = 21):
             "max_abs_err": err, "ms": ms["quotient_tape"], "plain_ms": plain_ms}
 
 
+MSM_KERNELS = {
+    True: ("msm_s5", "halo2_aggregation_tpu/ops/ec_pallas.py:490"),
+    False: ("msm_u4", "halo2_aggregation_tpu/ops/ec_pallas.py:408"),
+}
+
+
+def msm_launches() -> dict:
+    from halo2_aggregation_tpu_torch.ops import msm_kernels as mk
+
+    return {"msm_s5": mk.msm_bucket_s5.launches, "msm_u4": mk.msm_bucket_u4.launches}
+
+
+def reset_msm_launches() -> None:
+    from halo2_aggregation_tpu_torch.ops import msm_kernels as mk
+
+    mk.msm_bucket_s5.launches = 0
+    mk.msm_bucket_u4.launches = 0
+
+
+def phase_msm(device, k: int = 21, k_edge: int = 14, k_prove: int = 16) -> dict:
+    """K7 and K9 through `DeviceSRS.commit_lagrange` at n = 2^k against the
+    native host MSM; at the prove's n = 2^k_prove against their plain
+    versions and the native MSM (the kernels' records take these times);
+    then at a ragged n near 2^k_edge against their plain versions on edge
+    lanes.  Returns the two kernels' records (launches: the commitments of
+    the 2^k run)."""
+    import numpy as np
+    import torch
+
+    from halo2_aggregation_tpu.fields import R
+    from halo2_aggregation_tpu.plonk import kzg
+    from halo2_aggregation_tpu.utils import native
+    from halo2_aggregation_tpu.utils.u64 import ints_to_u64, u64_to_points
+    from halo2_aggregation_tpu_torch.ops import curve_ops as co
+    from halo2_aggregation_tpu_torch.ops import field_ops as fo
+    from halo2_aggregation_tpu_torch.ops import msm as m
+    from halo2_aggregation_tpu_torch.ops import msm_kernels as mk
+    from halo2_aggregation_tpu_torch.ops.limbs import ints_to_tensor, u64_to_port
+    from halo2_aggregation_tpu_torch.plonk.kzg import DeviceSRS
+
+    def affine(p):
+        return co.jac_to_ints(co.JacPoint(*(c[None] for c in p)))[0]
+
+    n = 1 << k
+    rng = np.random.default_rng(SEED + 200 + k)
+    t0 = time.perf_counter()
+    params = kzg.setup(k)
+    setup_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    t0 = time.perf_counter()
+    srs = DeviceSRS(params, device)
+    torch.cuda.synchronize()
+    upload_s = time.perf_counter() - t0
+
+    col = random_columns(rng, 1, n)[0]  # plain values below 2^253 < r
+    zero = np.zeros((n, 4), np.uint64)
+    row = int(rng.integers(n))
+    one_hot = zero.copy()
+    one_hot[row, 0] = 1
+    srs_row = u64_to_points(params.g_lagrange_u64[row : row + 1], params.g_lagrange_inf[row : row + 1])[0]
+    t0 = time.perf_counter()
+    want = native.g1_msm_u64(params.g_lagrange_u64, params.g_lagrange_inf, col)
+    native_s = time.perf_counter() - t0
+    cases = {"random": (col, want), "zero": (zero, None), "one_hot": (one_hot, srs_row)}
+    reset_msm_launches()
+    for signed in (True, False):
+        for case, (values, expect) in cases.items():
+            got = srs.commit_lagrange(values, signed=signed)
+            if got != expect:
+                raise AssertionError(f"{MSM_KERNELS[signed][0]} at 2^{k}, {case} column: {got} != {expect}")
+    torch.cuda.synchronize()
+    launches = msm_launches()
+    if min(launches.values()) < len(cases):
+        raise AssertionError(f"DeviceSRS did not launch K7 and K9 once per commitment: {launches}")
+    if native.g1_msm_u64(params.g_lagrange_u64, params.g_lagrange_inf, zero) is not None:
+        raise AssertionError("native MSM of the zero column is not the identity")
+
+    # kernel times at 2^k: the launchers alone on resident digits, then the
+    # whole commitment (H2D of the column, recoding, kernels, D2H)
+    s_dev = torch.from_numpy(u64_to_port(col)).to(device)
+    P = srs.points
+    kernel_ms, recode_ms, commit_s = {}, {}, {}
+    for signed in (True, False):
+        name = MSM_KERNELS[signed][0]
+        recode = m.signed_windows if signed else m.unsigned_windows
+        digits = recode(s_dev)
+        launch = mk.msm_bucket_s5 if signed else mk.msm_bucket_u4
+        chunks = m.choose_chunks(n, signed)
+        kernel_ms[name] = cuda_ms(lambda: launch(P.x, P.y, digits, chunks), reps=3)
+        recode_ms[name] = cuda_ms(lambda: recode(s_dev), reps=3)
+        _, commit_ms = host_ms(lambda: srs.commit_lagrange(col, signed=signed))
+        commit_s[name] = commit_ms / 1e3
+        del digits
+    peak = torch.cuda.max_memory_allocated(device)
+    del s_dev
+
+    # the prove's size: the SRS's first 2^k_prove points, a random column;
+    # kernel, plain version and native MSM at the kernel's chunking
+    npr = 1 << k_prove
+    col_p = random_columns(rng, 1, npr)[0]
+    s_p = torch.from_numpy(u64_to_port(col_p)).to(device)
+    xp, yp = P.x[:npr], P.y[:npr]
+    native_p = native.g1_msm_u64(params.g_lagrange_u64[:npr], params.g_lagrange_inf[:npr], col_p)
+    prove_ms, prove_plain_ms = {}, {}
+    for signed in (True, False):
+        name = MSM_KERNELS[signed][0]
+        digits = (m.signed_windows if signed else m.unsigned_windows)(torch.where(P.inf[:npr, None], 0, s_p))
+        launch = mk.msm_bucket_s5 if signed else mk.msm_bucket_u4
+        C = m.choose_chunks(npr, signed)
+        got = affine(launch(xp, yp, digits, C))
+        ref, prove_plain_ms[name] = host_ms(lambda: m.msm_bucket_plain(xp, yp, digits, signed, C))
+        if got != affine(ref) or got != native_p:
+            raise AssertionError(f"{name} at n = 2^{k_prove}: kernel {got}, plain {affine(ref)}, native {native_p}")
+        prove_ms[name] = cuda_ms(lambda: launch(xp, yp, digits, C), reps=5)
+
+    # edge lanes at a ragged n near 2^k_edge on the SRS's first points
+    ne = (1 << k_edge) - 3
+    ks = [int.from_bytes(rng.bytes(32), "little") % R for _ in range(ne)]
+    for i, v in enumerate([0, 1, R - 1, ((1 << 254) - 1) % R]):
+        ks[i] = v
+    x, y = P.x[:ne].clone(), P.y[:ne].clone()
+    inf = P.inf[:ne].clone()
+    inf[4] = inf[ne - 1] = True  # infinity flags (their scalars are zeroed)
+    ks[5] = 0
+    records = {}
+    for signed in (True, False):
+        name, replaces = MSM_KERNELS[signed]
+        C = m.choose_chunks(ne, signed)
+        # one chunk, one scalar: P, -P (identity branch), P, P (doubling)
+        r = 6
+        xe, ye, ke = x.clone(), y.clone(), list(ks)
+        for j, neg in ((1, True), (2, False), (3, False)):
+            xe[r + j * C] = xe[r]
+            ye[r + j * C] = fo.neg(ye[r], fo.FQ) if neg else ye[r]
+            ke[r + j * C] = ke[r]
+        A = co.AffinePoint(xe, ye, inf)
+        s = ints_to_tensor(ke, device)
+        got = affine(m.msm(A, s, signed=signed))
+        digits = (m.signed_windows if signed else m.unsigned_windows)(torch.where(inf[:, None], 0, s))
+        ref, plain_ms = host_ms(lambda: m.msm_bucket_plain(xe, ye, digits, signed, C))
+        want = affine(ref)
+        host_pts = co.jac_to_ints(co.affine_to_jac(A))
+        native_want = native.g1_msm(host_pts, [0 if p is None else kk for p, kk in zip(host_pts, ke)])
+        if got != want or got != native_want:
+            raise AssertionError(f"{name} at n = {ne}: kernel {got}, plain {want}, native {native_want}")
+        launch = mk.msm_bucket_s5 if signed else mk.msm_bucket_u4
+        records[name] = {
+            "name": name, "route": "cuda", "source": "halo2_aggregation_tpu_torch/csrc/msm.cu",
+            "replaces": replaces, "max_abs_err": max_abs_err([got], [want]),
+            "ms": prove_ms[name], "plain_ms": prove_plain_ms[name], "n": npr,
+            "ms_at_2^%d" % k: kernel_ms[name], "launches": launches[name],
+            "edge_ms": cuda_ms(lambda: launch(xe, ye, digits, C), reps=5), "edge_plain_ms": plain_ms,
+        }
+    emit({
+        "phase": "msm", "k": k, "n": n, "tolerance": "exact: equal affine points",
+        "equal_to_native": list(cases), "setup_s": setup_s, "srs_upload_to_mont_s": upload_s,
+        "native_host_msm_s": native_s, "kernel_ms": kernel_ms, "recode_ms": recode_ms,
+        "commit_s": commit_s, "chunks": {MSM_KERNELS[sg][0]: m.choose_chunks(n, sg) for sg in (True, False)},
+        "peak_device_mib": peak / 2**20, "launches": launches,
+        "prove_n": npr, "prove_n_equal_plain_and_native": True,
+        "prove_n_kernel_ms": prove_ms, "prove_n_plain_ms": prove_plain_ms,
+        "edge_n": ne, "edge_equal_plain_and_native": True,
+        "edge_kernel_ms": {nm: r.pop("edge_ms") for nm, r in records.items()},
+        "edge_plain_ms": {nm: r.pop("edge_plain_ms") for nm, r in records.items()},
+    })
+    return records
+
+
+def prove_commitments(cs) -> int:
+    """The commitments a proof writes: instance, advice, two per lookup
+    (permuted input and table), the permutation products, the lookup
+    products, the random r, the h pieces and one multiopen witness per
+    rotation set."""
+    from halo2_aggregation_tpu.plonk.protocol import query_schedule, rotation_sets
+    from halo2_aggregation_tpu.plonk.verifier import num_perm_chunks
+
+    chunks = num_perm_chunks(cs)
+    lookups = len(cs.lookups)
+    return (cs.num_instance_columns + cs.num_advice_columns + 3 * lookups + chunks + 1
+            + cs.quotient_poly_degree() + len(rotation_sets(query_schedule(cs, chunks, lookups))))
+
+
 def phase_prove(device, k: int = 16) -> dict:
-    """The prover's path: create_proof_device on the card against the JAX
-    package's host create_proof_native.  Returns the K3-K6 launch counts
-    of the device prove."""
+    """The prover's path: keygen_device and create_proof_device on the card,
+    sharing one DeviceSRS, against the JAX package's host keygen_native and
+    create_proof_native.  Returns the K3-K7 launch counts of the device
+    prove."""
     import torch
 
     from halo2_aggregation_tpu.models import simple_example as se
@@ -605,17 +857,39 @@ def phase_prove(device, k: int = 16) -> dict:
     from halo2_aggregation_tpu.plonk.keygen import keygen_native
     from halo2_aggregation_tpu.plonk.prover_native import create_proof_native
     from halo2_aggregation_tpu.plonk.verifier import verify_proof
+    from halo2_aggregation_tpu_torch.plonk.keygen_device import keygen_device
+    from halo2_aggregation_tpu_torch.plonk.kzg import DeviceSRS
     from halo2_aggregation_tpu_torch.plonk.prover_device import create_proof_device
 
     t0 = time.perf_counter()
     params = kzg.setup(k)
     circuit = se.MyCircuit(constant=7, a=2, b=3)
     cs_e, _, asg_e = se.build(circuit.without_witnesses(), k=k)
-    vk, pk = keygen_native(params, cs_e, asg_e)
     setup_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    vk, pk = keygen_native(params, cs_e, asg_e)
+    keygen_host_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    srs = DeviceSRS(params, device)
+    torch.cuda.synchronize()
+    srs_s = time.perf_counter() - t0
+    reset_msm_launches()
+    t0 = time.perf_counter()
+    vk_d, pk_d = keygen_device(params, cs_e, asg_e, device=device, srs=srs)
+    torch.cuda.synchronize()
+    keygen_device_s = time.perf_counter() - t0
+    keygen_launches = msm_launches()
+    keygen_commits = len(vk_d.fixed_commitments) + len(vk_d.sigma_commitments)
+    if keygen_launches != {"msm_s5": keygen_commits, "msm_u4": 0}:
+        raise AssertionError(f"keygen_device: {keygen_launches} launches for {keygen_commits} commitments")
+    if (vk_d.fixed_commitments, vk_d.sigma_commitments) != (vk.fixed_commitments, vk.sigma_commitments):
+        raise AssertionError("keygen_device's vk commitments != keygen_native's")
+    if vk_d.hash_scalar() != vk.hash_scalar():
+        raise AssertionError("keygen_device's vk hash != keygen_native's")
     pub = [circuit.public_output()]
 
-    def prove(fn, **kw):
+    def prove(fn, key, **kw):
         stages = []
         last = [time.perf_counter()]
 
@@ -626,17 +900,21 @@ def phase_prove(device, k: int = 16) -> dict:
 
         _, _, asg = se.build(circuit, k=k)
         t0 = time.perf_counter()
-        proof = fn(params, pk, asg, [pub], seed=42, progress=log, **kw)
+        proof = fn(params, key, asg, [pub], seed=42, progress=log, **kw)
         torch.cuda.synchronize()
         return proof, time.perf_counter() - t0, stages
 
-    ref, host_s, host_stages = prove(create_proof_native)
+    ref, host_s, host_stages = prove(create_proof_native, pk)
     torch.cuda.synchronize()
     reset_ntt_launches()
-    got, dev_s, dev_stages = prove(create_proof_device, device=device)
-    launches = ntt_launches()
+    reset_msm_launches()
+    got, dev_s, dev_stages = prove(create_proof_device, pk_d, device=device, srs=srs)
+    launches = {**ntt_launches(), "msm_s5": msm_launches()["msm_s5"]}
+    commits = prove_commitments(cs_e)
     if min(launches.values()) < 1:
         raise AssertionError(f"a kernel of the prover's path was not launched: {launches}")
+    if launches["msm_s5"] != commits or msm_launches()["msm_u4"] != 0:
+        raise AssertionError(f"K7 launched {launches['msm_s5']} times for {commits} commitments")
     if got != ref:
         raise AssertionError("create_proof_device bytes != create_proof_native")
     ok, _ = verify_proof(params, vk, [pub], got)
@@ -644,8 +922,11 @@ def phase_prove(device, k: int = 16) -> dict:
         raise AssertionError("verify_proof rejected the device proof")
     emit({
         "phase": "prove", "circuit": "simple example", "k": k, "proof_bytes": len(got),
-        "equal_to_create_proof_native": True, "verified": True, "setup_keygen_s": setup_s,
-        "device_prove_s": dev_s, "host_prove_s": host_s, "launches": launches,
+        "vk_equal_to_keygen_native": True, "keygen_commitments": keygen_commits,
+        "equal_to_create_proof_native": True, "verified": True, "prove_commitments": commits,
+        "setup_s": setup_s, "keygen_host_s": keygen_host_s, "srs_upload_s": srs_s,
+        "keygen_device_s": keygen_device_s, "device_prove_s": dev_s, "host_prove_s": host_s,
+        "launches": launches,
         # [progress message, seconds since the previous one]
         "device_stages": dev_stages, "host_stages": host_stages,
     })
@@ -675,8 +956,8 @@ def main() -> int:
     phase_card()
     phase_build()
     done("card+build")
-    k1 = phase_k1(device)
-    done("k1")
+    k1, k8 = phase_k1(device)
+    done("k1+k8")
     params, vk, protos = make_proofs()
     k2 = phase_k2(params, vk, protos, device)
     done("k2")
@@ -684,16 +965,21 @@ def main() -> int:
     done("main+profile")
     k1["launches"] = launches["ec_win"]
     k2["launches"] = launches["fa_tape"]
+    k8["launches"] = launches["ec_ladder"]
     recs = phase_ntt(device)
     done("ntt")
     recs["quotient_tape"] = phase_quotient(device)
     done("quotient")
+    msm_recs = phase_msm(device)
+    done("msm")
     prove_launches = phase_prove(device)
     done("prove")
     emit({"phase_seconds": seconds, "total_s": sum(seconds.values())})
     for name, rec in recs.items():
         rec["launches"] = prove_launches[name]
-    emit({"kernels": [k1, k2, *recs.values()]})
+    # K7 is on the prover's path; K9 on DeviceSRS(signed=False) in `msm`
+    msm_recs["msm_s5"]["launches"] = prove_launches["msm_s5"]
+    emit({"kernels": [k1, k2, *recs.values(), msm_recs["msm_s5"], k8, msm_recs["msm_u4"]]})
     loaded = sorted(m for m, v in sys.modules.items() if v is not None and m.split(".")[0] == "jax")
     if loaded:
         raise AssertionError(f"JAX modules were loaded: {loaded[:5]}")

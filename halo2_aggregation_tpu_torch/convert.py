@@ -3,8 +3,9 @@
 The vk, `pk`, `Params`, assignments and proofs are shared host objects,
 so only the JAX package's limb arrays need converting: its `VerifierBatch`
 (with numpy or jax array leaves), its point and scalar arrays, the
-quotient engine's coefficient columns and the NTT plan's twiddle tables,
-from `(..., 32)` 8-bit limbs to the port's `(..., 8)` 32-bit limbs.
+quotient engine's coefficient columns, the NTT plan's twiddle tables and
+the resident SRS of `Params._device_points`, from `(..., 32)` 8-bit limbs
+to the port's `(..., 8)` 32-bit limbs.
 Montgomery form is the same (R = 2^256), so this is repacking (and, for
 the quotient columns, the bit-reversal permutation) only.  Nothing here
 imports jax: the JAX objects are read by attribute and through
@@ -19,7 +20,7 @@ import torch
 from halo2_aggregation_tpu.plonk.protocol import LookupEvals, PermutationSetEvals
 
 from .device import resolve_device
-from .ops.curve_ops import JacPoint
+from .ops.curve_ops import AffinePoint, JacPoint
 from .ops.limbs import jax_to_port
 from .ops.ntt import bit_reverse_indices
 from .plonk.verifier_device import VerifierBatch
@@ -33,6 +34,16 @@ def scalars_from_jax(arr, device) -> torch.Tensor:
 def points_from_jax(p, device) -> JacPoint:
     """JAX `JacPoint` (x, y, z of (..., 32)) -> port JacPoint."""
     return JacPoint(*(scalars_from_jax(c, device) for c in (p.x, p.y, p.z)))
+
+
+def srs_from_jax(points, device="cpu") -> AffinePoint:
+    """The JAX package's resident SRS, `kzg.Params._device_points` (an
+    `AffinePoint` of (n, 32) Montgomery 8-bit limbs and (n,) infinity
+    flags, `plonk/kzg.py:139-150`) -> the port's `DeviceSRS.points` (the
+    same values as (n, 8) limbs)."""
+    device = resolve_device(device)
+    inf = torch.from_numpy(np.asarray(points.inf).astype(bool)).to(device)
+    return AffinePoint(scalars_from_jax(points.x, device), scalars_from_jax(points.y, device), inf)
 
 
 def from_jax_batch(jb, device) -> VerifierBatch:

@@ -68,4 +68,30 @@ H2A_HD Jac jac_add(const Jac& p, const Jac& q) {
   return o;
 }
 
+// p + (x2, y2, 1): the Jacobian + affine add of
+// halo2_aggregation_tpu/ops/ec_pallas.py::_jac_add_mixed (:284-314), 11
+// products against jac_add's 16.  The affine operand is never the identity
+// (the MSM skips zero digits).  Edge cases: p == O -> (x2, y2, 1);
+// h == r == 0 (p == q) -> 2p; h == 0, r != 0 (p == -q) -> O.
+H2A_HD Jac jac_add_mixed(const Jac& p, const Fe& x2, const Fe& y2) {
+  if (fe_is_zero(p.z)) return Jac{x2, y2, fe_one<Fq>()};
+  Fe z1z1 = fe_sqr<Fq>(p.z);
+  Fe u2 = fe_mul<Fq>(x2, z1z1);
+  Fe s2 = fe_mul<Fq>(y2, fe_mul<Fq>(p.z, z1z1));
+  Fe h = fe_sub<Fq>(u2, p.x);
+  Fe r = fe_sub<Fq>(s2, p.y);
+  if (fe_is_zero(h)) {
+    if (fe_is_zero(r)) return jac_double(p);
+    return jac_identity();
+  }
+  Fe h2 = fe_sqr<Fq>(h);
+  Fe h3 = fe_mul<Fq>(h2, h);
+  Fe u1h2 = fe_mul<Fq>(p.x, h2);
+  Jac o;
+  o.x = fe_sub<Fq>(fe_sub<Fq>(fe_sqr<Fq>(r), h3), fe_add<Fq>(u1h2, u1h2));
+  o.y = fe_sub<Fq>(fe_mul<Fq>(r, fe_sub<Fq>(u1h2, o.x)), fe_mul<Fq>(p.y, h3));
+  o.z = fe_mul<Fq>(p.z, h);
+  return o;
+}
+
 }  // namespace h2a

@@ -1,10 +1,13 @@
 // Host build of the kernels' arithmetic: g++ compiles the same headers the
-// CUDA kernels use, so the CPU tests check K1's, K2's and K6's per-lane code
-// and the NTT butterflies and index maps of K3-K5 without a card
+// CUDA kernels use, so the CPU tests check K1's, K2's, K6's and K8's per-lane
+// code, the NTT butterflies and index maps of K3-K5, the mixed add and the
+// per-thread bucket pass, fold and Horner of K7 and K9 without a card
 // (tests/test_torch_host_core.py).  Not part of the CUDA library.  Layouts
 // match the kernels': elements are 8 x 32-bit limbs.
+#include "ec_ladder.cuh"
 #include "ec_win.cuh"
 #include "fa_tape.cuh"
+#include "msm.cuh"
 #include "ntt.cuh"
 #include "quotient_tape.cuh"
 
@@ -62,6 +65,69 @@ void h2a_host_ec_win(const uint32_t* px, const uint32_t* py,
     store(oy + off, r.y);
     store(oz + off, r.z);
   }
+}
+
+// Points are (n, 3, 8) Jacobian, the affine operands (n, 8) x and y.
+void h2a_host_jac_add_mixed(const uint32_t* p, const uint32_t* x2,
+                            const uint32_t* y2, uint32_t* out, int n) {
+  for (int i = 0; i < n; i++) {
+    const uint32_t* a = p + 3 * NL * i;
+    Jac P{load(a), load(a + NL), load(a + 2 * NL)};
+    Jac r = jac_add_mixed(P, load(x2 + NL * i), load(y2 + NL * i));
+    uint32_t* o = out + 3 * NL * i;
+    store(o, r.x);
+    store(o + NL, r.y);
+    store(o + 2 * NL, r.z);
+  }
+}
+
+// K8's lane on every lane.
+void h2a_host_ec_ladder(const uint32_t* px, const uint32_t* py,
+                        const uint32_t* pz, const uint32_t* scalars,
+                        uint32_t* ox, uint32_t* oy, uint32_t* oz, int n,
+                        int nbits) {
+  for (int i = 0; i < n; i++) {
+    size_t off = (size_t)NL * i;
+    Jac P{load(px + off), load(py + off), load(pz + off)};
+    Jac r = ec_ladder_lane(P, scalars + off, nbits);
+    store(ox + off, r.x);
+    store(oy + off, r.y);
+    store(oz + off, r.z);
+  }
+}
+
+// The bucket pass and fold of every thread (w, c) of K7 (is_signed) or K9:
+// partials (n_win, C, 3, 8) from digits (n_win, n) and points xs, ys (n, 8).
+void h2a_host_msm_partials(int is_signed, const uint32_t* xs,
+                           const uint32_t* ys, const uint8_t* digits, int n,
+                           int C, uint32_t* partials) {
+  int n_win = is_signed ? MsmKind<true>::WINDOWS : MsmKind<false>::WINDOWS;
+  for (int w = 0; w < n_win; w++) {
+    for (int c = 0; c < C; c++) {
+      const uint8_t* dig = digits + (size_t)w * n;
+      Jac r = is_signed ? msm_chunk<true>(xs, ys, dig, n, c, C)
+                        : msm_chunk<false>(xs, ys, dig, n, c, C);
+      uint32_t* o = partials + ((size_t)w * C + c) * 3 * NL;
+      store(o, r.x);
+      store(o + NL, r.y);
+      store(o + 2 * NL, r.z);
+    }
+  }
+}
+
+// Horner across windows over (n_win, 3, 8) window sums; out (3, 8).
+void h2a_host_msm_horner(int is_signed, const uint32_t* wsums, uint32_t* out) {
+  int n_win = is_signed ? MsmKind<true>::WINDOWS : MsmKind<false>::WINDOWS;
+  int bits = is_signed ? MsmKind<true>::BITS : MsmKind<false>::BITS;
+  Jac ws[MsmKind<false>::WINDOWS];
+  for (int w = 0; w < n_win; w++) {
+    const uint32_t* a = wsums + 3 * NL * w;
+    ws[w] = Jac{load(a), load(a + NL), load(a + 2 * NL)};
+  }
+  Jac r = msm_horner(ws, n_win, bits);
+  store(out, r.x);
+  store(out + NL, r.y);
+  store(out + 2 * NL, r.z);
 }
 
 void h2a_host_fa_tape(const int32_t* tape, int n_instr, const uint32_t* consts,

@@ -28,7 +28,9 @@ import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "kernels"
-KERNEL_SOURCES = ("ec_win.cu", "fa_tape.cu", "ntt.cu", "ew.cu", "quotient_tape.cu")
+KERNEL_SOURCES = (
+    "ec_win.cu", "ec_ladder.cu", "fa_tape.cu", "ntt.cu", "ew.cu", "quotient_tape.cu", "msm.cu",
+)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -41,6 +43,8 @@ _L = ctypes.c_longlong
 _SIGNATURES = {
     # px, py, pz, scalars, ox, oy, oz, n, stream
     "h2a_ec_win": [_P, _P, _P, _P, _P, _P, _P, _I, _P],
+    # px, py, pz, scalars, ox, oy, oz, n, nbits, stream
+    "h2a_ec_ladder": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _P],
     # tape, n_instr, consts, in, n_in, tmp, out_regs, n_out, out, lanes, stream
     "h2a_fa_tape": [_P, _I, _P, _P, _I, _P, _P, _I, _P, _I, _P],
     # x, tw, cols, k, s, dif, stream
@@ -54,6 +58,8 @@ _SIGNATURES = {
     # tape, n_instr, consts, in_src, in_rot, n_in, stack, x, uniforms, n,
     # out_reg, out, stream
     "h2a_quotient_tape": [_P, _I, _P, _P, _P, _I, _P, _P, _P, _I, _I, _P, _P],
+    # is_signed, xs, ys, digits, n, chunks, partials, wsums, ticket, out, stream
+    "h2a_msm": [_I, _P, _P, _P, _I, _I, _P, _P, _P, _P, _P],
 }
 
 
@@ -101,7 +107,7 @@ def build_library(build_root: Path = BUILD_ROOT) -> Path:
     log, failed = [], []
     for cmd, _, proc in jobs:
         out, _ = proc.communicate()
-        log.append(f"# {' '.join(cmd)}\n{out}")
+        log.append(f"# done by {time.perf_counter() - t0:.1f} s: {' '.join(cmd)}\n{out}")
         if proc.returncode != 0:
             failed.append(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{out}")
     if failed:
@@ -160,7 +166,11 @@ def build_host_library(out_dir) -> ctypes.CDLL:
     sigs = {
         "h2a_host_mont_mul": [_I, _P, _P, _P, _I],
         "h2a_host_jac_add": [_P, _P, _P, _I],
+        "h2a_host_jac_add_mixed": [_P, _P, _P, _P, _I],
         "h2a_host_ec_win": [_P, _P, _P, _P, _P, _P, _P, _I],
+        "h2a_host_ec_ladder": [_P, _P, _P, _P, _P, _P, _P, _I, _I],
+        "h2a_host_msm_partials": [_I, _P, _P, _P, _I, _I, _P],
+        "h2a_host_msm_horner": [_I, _P, _P],
         "h2a_host_fa_tape": [_P, _I, _P, _P, _I, _P, _P, _I, _P, _I],
         "h2a_host_ntt_stage": [_P, _P, _I, _I, _I, _I],
         "h2a_host_pow_series": [_P, _P, _P, _I, _I],

@@ -6,9 +6,10 @@ path (`verify_batch(aggregate=True)` -> `verify_algebra_fast`):
 1. host: `parse_proof` replays each transcript (shared host module), then
    `batch_proofs` and `fast_prep_gathered` build the batch;
 2. device: `fast_device_gathered` -> `fast_device`: the fused field algebra
-   (kernel K2) gives h_eval, one windowed scalar-mul (kernel K1) runs over
-   all B x (M + 1) multiopen lanes including the e-lane, and per-component
-   tree sums give each proof's quad (e, f, w, zw);
+   (kernel K2) gives h_eval, one batched scalar-mul runs over all
+   B x (M + 1) multiopen lanes including the e-lane (kernel K1, the
+   windowed ladder, or with `method="ladder"` kernel K8, the bit-serial
+   one), and per-component tree sums give each proof's quad (e, f, w, zw);
 3. host: `check_aggregate` folds all quads into one pairing.
 
 `_multiopen_coefficients`, `synthetic_batch` and `aggregate_quads` /
@@ -45,7 +46,7 @@ from ..device import resolve_device
 from ..ops import curve_ops as co
 from ..ops import field_ops as fo
 from ..ops.curve_ops import JacPoint
-from ..ops.ec_kernels import scalar_mul_win
+from ..ops.ec_kernels import scalar_mul
 from ..ops.limbs import ints_to_np
 from .fa_fused import field_algebra_fused
 
@@ -294,24 +295,24 @@ def fast_prep_gathered(vk: VerifyingKey, parsed: List[ParsedProof], device):
 
 def fast_device_gathered(
     vk: VerifyingKey, b: VerifierBatch, B: int, descs: tuple,
-    lane_scalars, h_coeff_mont, known_mont,
+    lane_scalars, h_coeff_mont, known_mont, method: str = "win",
 ):
     """Device half: gather the lane points out of the VerifierBatch, then
     run `fast_device`."""
     ms = tuple(len(comp) for comp in descs)
     pts = [_desc_point_batch(vk, b, d, B) for comp in descs for d in comp]
     lane_pts = JacPoint(*(torch.stack([p[c] for p in pts], 1) for c in range(3)))
-    return fast_device(vk, b, B, ms, lane_pts, lane_scalars, h_coeff_mont, known_mont)
+    return fast_device(vk, b, B, ms, lane_pts, lane_scalars, h_coeff_mont, known_mont, method)
 
 
 def fast_device(
     vk: VerifyingKey, b: VerifierBatch, B: int, ms: tuple,
-    lane_pts: JacPoint, lane_scalars, h_coeff_mont, known_mont,
+    lane_pts: JacPoint, lane_scalars, h_coeff_mont, known_mont, method: str = "win",
 ):
-    """Field algebra for h_eval (K2), ONE scalar-mul (K1) over every
-    multiopen lane plus the e-lane (e = -(eval_known + h_coeff*h_eval)*G1),
-    then per-component tree sums.  Returns {e, f, w, zw: JacPoint of (B, 8),
-    h_eval: (B, 8)}."""
+    """Field algebra for h_eval (K2), ONE scalar-mul (K1, or K8 with
+    `method="ladder"`) over every multiopen lane plus the e-lane
+    (e = -(eval_known + h_coeff*h_eval)*G1), then per-component tree sums.
+    Returns {e, f, w, zw: JacPoint of (B, 8), h_eval: (B, 8)}."""
     device = b.x.device
     h_eval, _, _ = field_algebra_fused(vk, b, B)
 
@@ -323,7 +324,7 @@ def fast_device(
         *(torch.cat((lp, g.expand(B, 1, 8)), 1) for lp, g in zip(lane_pts, g1))
     )
     all_scalars = torch.cat((lane_scalars, e_scalar), 1)
-    per_all = scalar_mul_win(all_pts, all_scalars)  # (B, M + 1, 8)
+    per_all = scalar_mul(all_pts, all_scalars, method)  # (B, M + 1, 8)
 
     # w, zw, f: one tree sum over lanes, components padded with identities
     m_max = max(ms)
@@ -341,13 +342,15 @@ def fast_device(
     return quads
 
 
-def verify_algebra_fast(vk: VerifyingKey, b: VerifierBatch, parsed: List[ParsedProof]):
+def verify_algebra_fast(
+    vk: VerifyingKey, b: VerifierBatch, parsed: List[ParsedProof], method: str = "win"
+):
     """Host prep + device half; the quads stay on the batch's device."""
     descs, lane_scalars, h_coeff_mont, known_mont = fast_prep_gathered(
         vk, parsed, b.x.device
     )
     return fast_device_gathered(
-        vk, b, len(parsed), descs, lane_scalars, h_coeff_mont, known_mont
+        vk, b, len(parsed), descs, lane_scalars, h_coeff_mont, known_mont, method
     )
 
 
@@ -477,9 +480,11 @@ def verify_batch(
     device,
     aggregate: bool = True,
     timings: dict | None = None,
+    method: str = "win",
 ):
     """Full batched verification: host transcript replay, device algebra
-    (K2, K1 and the lane sums on `device`), host pairing.  With
+    (K2, the scalar-mul by `method`, "win" for K1 or "ladder" for K8, and
+    the lane sums on `device`), host pairing.  With
     aggregate=True, folds all quads into ONE pairing check and returns
     (ok: bool, quads); otherwise ([ok per proof], quads).  `timings`, if
     given, receives the stage split in seconds: parse, prep, device (up to
@@ -497,7 +502,7 @@ def verify_batch(
     batch = batch_proofs(vk, parsed, device)
     prep = fast_prep_gathered(vk, parsed, device)
     t2 = time.perf_counter()
-    efws = quads_to_ints(fast_device_gathered(vk, batch, len(parsed), *prep))
+    efws = quads_to_ints(fast_device_gathered(vk, batch, len(parsed), *prep, method))
     t3 = time.perf_counter()
     if aggregate:
         result = check_aggregate(efws, params)

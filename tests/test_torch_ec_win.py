@@ -1,5 +1,5 @@
-"""K1's wrapper on CPU tensors (its plain version) vs the JAX package's
-scalar-mul and the oracle, compared as affine points.
+"""K1's and K8's wrappers on CPU tensors (their plain versions) vs the JAX
+package's scalar-mul and the oracle, compared as affine points.
 
 The CUDA kernel itself runs only on the card (`chip_smoke.py`); its
 per-lane code is also built with g++ in `test_torch_host_core.py`."""
@@ -15,7 +15,7 @@ from halo2_aggregation_tpu.ops import curve_ops as jco
 from halo2_aggregation_tpu.ops.ec_pallas import scalar_mul_auto
 from halo2_aggregation_tpu.ops.limbs import ints_to_limbs
 from halo2_aggregation_tpu_torch.ops import curve_ops as co
-from halo2_aggregation_tpu_torch.ops.ec_kernels import scalar_mul_win
+from halo2_aggregation_tpu_torch.ops.ec_kernels import scalar_mul, scalar_mul_ladder, scalar_mul_win
 from halo2_aggregation_tpu_torch.ops.limbs import ints_to_tensor
 
 torch.set_num_threads(1)  # tiny tensors; the test workers share the cores
@@ -118,3 +118,36 @@ def test_wrapper_rejects_bad_inputs(lanes, bad):
         P = co.JacPoint(P.x.t().contiguous().t(), P.y, P.z)
     with pytest.raises(ValueError):
         scalar_mul_win(P, s)
+
+
+def test_ladder_matches_jax_scalar_mul_and_oracle(lanes):
+    """K8's wrapper on CPU tensors (the plain double-and-add over 254 bits)
+    on the lanes whose scalars are < r, as a (2, 5) batch: equal to the
+    JAX CPU `scalar_mul` (254 bits), to K1's plain version and to the
+    oracle, with no launch counted."""
+    pts, ks, out, _ = lanes
+    keep = [i for i, k in enumerate(ks) if k < R][:10]
+    P = co.affine_to_jac(co.affine_from_ints([pts[i] for i in keep], "cpu"))
+    s = ints_to_tensor([ks[i] for i in keep], "cpu")
+    before = scalar_mul_ladder.launches
+    got_t = scalar_mul_ladder(co.JacPoint(*(c.reshape(2, 5, 8) for c in P)), s.reshape(2, 5, 8))
+    assert scalar_mul_ladder.launches == before
+    assert got_t.x.shape == (2, 5, 8)
+    got = co.jac_to_ints(co.JacPoint(*(c.reshape(-1, 8) for c in got_t)))
+    jp = jco.affine_to_jac(jco.affine_from_ints([pts[i] for i in keep]))
+    js = jnp.asarray(ints_to_limbs([ks[i] for i in keep]))
+    assert got == jco.jac_to_ints(jco.scalar_mul(jp, js, 254))
+    win = co.jac_to_ints(co.JacPoint(*(c.reshape(-1, 8) for c in out)))
+    assert got == [win[i] for i in keep]
+    assert got == [oc.g1_mul(pts[i], ks[i]) if pts[i] is not None else None for i in keep]
+
+
+def test_scalar_mul_dispatches_by_method(lanes):
+    pts, ks, _, _ = lanes
+    P = co.affine_to_jac(co.affine_from_ints(pts[:2], "cpu"))
+    s = ints_to_tensor(ks[:2], "cpu")
+    assert co.jac_to_ints(scalar_mul(P, s, "win")) == co.jac_to_ints(scalar_mul_win(P, s))
+    with pytest.raises(ValueError, match="method"):
+        scalar_mul(P, s, "bits")
+    with pytest.raises(ValueError, match="nbits"):
+        scalar_mul_ladder(P, s, 257)

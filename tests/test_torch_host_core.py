@@ -1,8 +1,10 @@
 """The kernels' arithmetic on the host: g++ builds `csrc/field.cuh`,
-`curve.cuh`, K1's lane function, the tape interpreter of K2 and K6, and
-the NTT butterflies, stage index maps and power-series element of K3-K5
-(`ntt.cuh`) through `csrc/host_shim.cpp`, and each is checked against its
-plain PyTorch version, exactly (points as affine points)."""
+`curve.cuh` (with the mixed add), K1's and K8's lane functions, the tape
+interpreter of K2 and K6, the NTT butterflies, stage index maps and
+power-series element of K3-K5 (`ntt.cuh`), and the per-thread bucket pass,
+fold and Horner of K7 and K9 (`msm.cuh`) through `csrc/host_shim.cpp`, and
+each is checked against its plain PyTorch version, exactly (points as
+affine points)."""
 
 import ctypes
 import shutil
@@ -176,3 +178,72 @@ def test_quotient_lane(lib):
     want = qp.quotient_tape_eval_plain(qt, stack, x, uniforms, rows.long())
     assert torch.equal(out, want)
     assert len(set(tensor_to_ints(out))) == len(rows)
+
+
+def test_jac_add_mixed_edge_cases(lib):
+    """P + P (doubling), P + (-P) (identity), a bucket at infinity, random."""
+    g = oc.g1_generator()
+    rnd = _rand_points(6)
+    pts = [g, g, None] + rnd[:3]
+    qts = [g, oc.g1_neg(g), rnd[3]] + rnd[3:]
+    P = _points(pts)
+    x2, y2 = (fo.FQ.to_mont_tensor([q[i] for q in qts], "cpu") for i in (0, 1))
+    a = torch.stack(list(P), 1).contiguous()
+    out = torch.empty_like(a)
+    lib.h2a_host_jac_add_mixed(_ptr(a), _ptr(x2), _ptr(y2), _ptr(out), len(pts))
+    got = co.jac_to_ints(co.JacPoint(out[:, 0], out[:, 1], out[:, 2]))
+    assert got == co.jac_to_ints(co.jac_add_mixed(P, x2, y2))
+    assert got == [oc.g1_add(p, q) for p, q in zip(pts, qts)]
+
+
+@pytest.mark.parametrize("nbits", [254, 256])
+def test_ladder_lane(lib, nbits):
+    pts = _rand_points(5) + [None, oc.g1_generator()]
+    ks = [int.from_bytes(RNG.bytes(32), "little") % R for _ in range(4)] + [R - 1, 7, 0]
+    if nbits == 256:
+        ks[0] = (1 << 256) - 1
+    P = _points(pts)
+    s = ints_to_tensor(ks, "cpu")
+    out = co.JacPoint(*(torch.empty_like(c) for c in P))
+    lib.h2a_host_ec_ladder(*(_ptr(c) for c in P), _ptr(s), *(_ptr(c) for c in out), len(pts), nbits)
+    got = co.jac_to_ints(out)
+    assert got == co.jac_to_ints(co.scalar_mul_ladder(P, s, nbits))
+    assert got == [oc.g1_mul(p, k) if p else None for p, k in zip(pts, ks)]
+
+
+@pytest.mark.parametrize("signed", [True, False], ids=["k7_signed", "k9_unsigned"])
+def test_msm_bucket_pass_fold_and_horner(lib, signed):
+    """K7's / K9's per-thread bucket pass and fold for every (window, chunk)
+    at 3 chunks over 40 points (a ragged last chunk), against the plain
+    version's at the same chunking; then the Horner over the plain window
+    sums.  The lanes meet the identity and doubling branches of the adds in
+    one chunk, and hold an infinity point with its scalar zeroed, as `msm`
+    zeroes it."""
+    from halo2_aggregation_tpu_torch.ops import msm as m
+
+    n, C = 40, 3
+    pts = _rand_points(n)
+    ks = [int.from_bytes(RNG.bytes(32), "little") % R for _ in range(n)]
+    # rows C apart share a chunk, with one scalar: P, -P (the identity
+    # branch), P into the emptied bucket, P again (the doubling branch)
+    for i, p in ((3, oc.g1_neg(pts[0])), (6, pts[0]), (9, pts[0])):
+        pts[i], ks[i] = p, ks[0]
+    pts[4], ks[4] = None, 0
+    ks[5] = R - 1
+    A = co.affine_from_ints(pts, "cpu")
+    s = ints_to_tensor(ks, "cpu")
+    digits = (m.signed_windows(s) if signed else m.unsigned_windows(s)).contiguous()
+    n_win = digits.shape[0]
+    parts = torch.empty((n_win, C, 3, 8), dtype=torch.int32)
+    lib.h2a_host_msm_partials(int(signed), _ptr(A.x), _ptr(A.y), _ptr(digits), n, C, _ptr(parts))
+    want = m.bucket_partials_plain(A.x, A.y, digits, signed, C)
+    assert co.jac_to_ints(co.JacPoint(*(parts[:, :, i].reshape(-1, 8) for i in range(3)))) == co.jac_to_ints(
+        co.JacPoint(*(c.reshape(-1, 8) for c in want))
+    )
+    wsum = co.jac_sum(co.JacPoint(*(c.transpose(0, 1) for c in want)))
+    ws = torch.stack(list(wsum), 1).contiguous()
+    out = torch.empty((3, 8), dtype=torch.int32)
+    lib.h2a_host_msm_horner(int(signed), _ptr(ws), _ptr(out))
+    got = co.jac_to_ints(co.JacPoint(out[0:1], out[1:2], out[2:3]))[0]
+    assert got == co.jac_to_ints(co.JacPoint(*(c[None] for c in m.combine_plain(want, signed))))[0]
+    assert got == oc.g1_msm(pts, ks)

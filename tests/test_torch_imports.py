@@ -75,6 +75,34 @@ def test_slice_runs_with_jax_unimportable():
     assert "NOJAX_OK" in res.stdout
 
 
+def test_every_module_imports_without_jax():
+    """Each module of the package (the MSM's `ops/msm`, `ops/msm_kernels`,
+    `plonk/kzg` and `plonk/keygen_device` among them) and `chip_smoke.py`
+    import with `import jax` made to fail."""
+    script = textwrap.dedent(
+        """
+        import importlib, pkgutil, sys
+        sys.modules["jax"] = None
+        import halo2_aggregation_tpu_torch as pkg
+        names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
+        for name in names:
+            importlib.import_module(name)
+        import chip_smoke
+        assert "jax" not in {m.split(".")[0] for m, v in sys.modules.items() if v is not None}
+        print("IMPORTED", len(names), " ".join(sorted(names)))
+        """
+    )
+    env = dict(os.environ, PYTHONPATH=str(ROOT), OMP_NUM_THREADS="1")
+    res = subprocess.run(
+        [sys.executable, "-c", script], cwd=ROOT, env=env,
+        capture_output=True, text=True, timeout=300,
+    )
+    assert res.returncode == 0, res.stderr[-3000:]
+    imported = res.stdout.split()
+    for name in ("ops.msm", "ops.msm_kernels", "plonk.kzg", "plonk.keygen_device", "ops.ec_kernels"):
+        assert "halo2_aggregation_tpu_torch." + name in imported
+
+
 def test_cuda_request_raises_without_a_card():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is visible: the no-card path does not apply")

@@ -1,19 +1,23 @@
-"""The slice as a whole: `create_proof_device` on CPU tensors (every
-device step through its kernel's plain version) against the JAX package's
-host `create_proof_native` and the pure-int spec prover `create_proof`,
-byte for byte, and accepted by `verify_proof`."""
+"""The slices as a whole: `keygen_device` and `create_proof_device` on CPU
+tensors (every device step, the commitments included, through its
+kernel's plain version) against the JAX package's host `keygen_native`,
+`create_proof_native` and the pure-int spec prover `create_proof`, byte
+for byte, and accepted by `verify_proof`."""
 
 import pytest
 import torch
 
 from halo2_aggregation_tpu.models import simple_example as se
 from halo2_aggregation_tpu.plonk import kzg
-from halo2_aggregation_tpu.plonk.keygen import keygen
+from halo2_aggregation_tpu.plonk.keygen import keygen, keygen_native
 from halo2_aggregation_tpu.plonk.prover import create_proof
 from halo2_aggregation_tpu.plonk.prover_native import create_proof_native
 from halo2_aggregation_tpu.plonk.verifier import verify_proof
+from halo2_aggregation_tpu_torch.ops import msm_kernels as mk
 from halo2_aggregation_tpu_torch.ops import ntt as nt
 from halo2_aggregation_tpu_torch.plonk import quotient_program as qp
+from halo2_aggregation_tpu_torch.plonk.keygen_device import keygen_device
+from halo2_aggregation_tpu_torch.plonk.kzg import DeviceSRS
 from halo2_aggregation_tpu_torch.plonk.prover_device import create_proof_device
 
 torch.set_num_threads(1)  # small tensors; the test workers share the cores
@@ -38,7 +42,8 @@ def fresh_assignment(circuit):
 def test_create_proof_device_matches_native_and_spec(setup):
     params, vk, pk, circuit = setup
     pub = [circuit.public_output()]
-    fns = (nt.ntt_batched, nt.intt_batched, nt.ew_mul_col, nt.ew_mul_scalar, nt.pow_series, qp.quotient_tape_eval)
+    fns = (nt.ntt_batched, nt.intt_batched, nt.ew_mul_col, nt.ew_mul_scalar, nt.pow_series, qp.quotient_tape_eval,
+           mk.msm_bucket_s5, mk.msm_bucket_u4)
     stages = []
     got = create_proof_device(params, pk, fresh_assignment(circuit), [pub], seed=42, progress=stages.append, device="cpu")
     assert [f.launches for f in fns] == [0] * len(fns)  # CPU tensors never launch a kernel
@@ -50,6 +55,25 @@ def test_create_proof_device_matches_native_and_spec(setup):
     assert ok
     ok_bad, _ = verify_proof(params, vk, [[pub[0] + 1]], got)
     assert not ok_bad
+
+
+def test_keygen_device_matches_native(setup):
+    """keygen_device's commitments (the plain K7 on CPU tensors) and
+    columns equal keygen_native's, so the vk hashes alike."""
+    params, _, _, circuit = setup
+    cs_e, _, asg_e = se.build(circuit.without_witnesses(), k=K)
+    srs = DeviceSRS(params, "cpu")
+    before = mk.msm_bucket_s5.launches
+    vk, pk = keygen_device(params, cs_e, asg_e, device="cpu", srs=srs)
+    assert mk.msm_bucket_s5.launches == before
+    vk_n, pk_n = keygen_native(params, cs_e, asg_e)
+    assert vk.fixed_commitments == vk_n.fixed_commitments
+    assert vk.sigma_commitments == vk_n.sigma_commitments
+    assert vk.hash_scalar() == vk_n.hash_scalar()
+    for a, b in zip(pk.fixed_columns + pk.sigma_columns, pk_n.fixed_columns + pk_n.sigma_columns):
+        assert (a == b).all()
+    with pytest.raises(ValueError, match="srs"):
+        keygen_device(params, cs_e, asg_e, device="cpu", srs=DeviceSRS(kzg.setup(K - 1), "cpu"))
 
 
 def test_create_proof_device_raises_without_a_card(setup):

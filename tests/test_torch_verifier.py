@@ -57,6 +57,22 @@ def test_aggregate_accepts_and_quads_match_host(setup, batch4):
         assert tuple(efw) == efws[i] == efws[i + 2], f"quad {i} != host verify_proof"
 
 
+def test_ladder_method_gives_the_same_quads(setup, batch4):
+    """verify_batch with method="ladder" (K8's plain version on CPU
+    tensors) accepts the batch with the same quads as the windowed K1."""
+    from halo2_aggregation_tpu_torch.ops.ec_kernels import scalar_mul_ladder
+
+    params, vk, protos = setup
+    _, efws, _ = batch4
+    before = scalar_mul_ladder.launches
+    ok, got = vd.verify_batch(
+        params, vk, [p[0] for p in protos], [p[1] for p in protos], device="cpu", method="ladder"
+    )
+    assert ok is True
+    assert got == efws[:2]
+    assert scalar_mul_ladder.launches == before
+
+
 def test_timings_cover_the_stages(batch4):
     _, _, timings = batch4
     assert set(timings) == {"parse", "prep", "device", "pairing"}
