@@ -45,15 +45,18 @@ nonzero before the last line):
      (the `kernels` line's times); then at n = 2^14 - 3
      (ragged) K7 and K9 against their plain versions and the native MSM on
      edge lanes (infinity flags, zero scalars, 1, r - 1, 2^254 - 1 mod r, a
-     point, its negation and repeats in one chunk: the identity and
-     doubling branches);
+     point, its negation and repeats on adjacent rows of one chunk: the
+     identity and doubling branches); prints the chosen C, the blocks an SM
+     holds and the waves the grid fills, for 2^21 and 2^16;
   8. prove: the prover's path at k = 16 on the simple example:
-     `keygen_device` with the vk of the JAX package's host `keygen_native`,
+     `keygen_device` with the vk of the port's host `keygen_native`,
      then `create_proof_device` sharing its `DeviceSRS`, byte-identical to
      `create_proof_native` in the same process and accepted by
      `verify_proof`, with K7 launched once per commitment and K3-K6
      launched during the prove.
-Then one JSON line with the kernels' numbers, and as the last line
+Then one JSON line with the kernels' numbers (each with its launches on its
+path, its time, its plain version's time, its bound and `library_ms`: null,
+as no PyTorch call computes 256-bit modular arithmetic), and as the last line
 {"ok": true, "device": {...}}.  Exits nonzero, printing no result, when no
 CUDA device is visible.
 """
@@ -67,18 +70,18 @@ import subprocess
 import sys
 import time
 
-# The port runs without JAX.  The JAX package's host modules this script
-# shares probe for it (create_proof_native's TPU quotient switch, keygen's
-# static preload), so `import jax` is made to fail: nothing of JAX loads even
-# where it is installed, and those probes take their host paths.
+# The port runs without JAX and without the JAX package: both are made
+# unimportable here, so nothing of either loads even where it is installed,
+# and the last phase asserts that none did.
 sys.modules["jax"] = None
+sys.modules["halo2_aggregation_tpu"] = None
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 # the SRS cache stays inside the checkout (build/ is not committed)
 os.environ.setdefault("H2A_PARAMS_CACHE", os.path.join(ROOT, "build", "h2a-params"))
 sys.path.insert(0, ROOT)
 
-B = 128  # production batch (halo2_aggregation_tpu/config.py:50)
+B = 128  # production batch (the JAX package's config.py:50)
 K = 9  # simple-example inner circuit (config.py:30)
 SEED = 20261016
 
@@ -101,6 +104,46 @@ def cuda_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+# The bound of a kernel: the least time the card could take for the same
+# work, the larger of its bytes over the memory rate and its operations
+# over their peak rate (NVIDIA's H100 SXM data sheet: 3.35 TB/s of HBM,
+# 67 TFLOP/s of float32 = 132 SMs x 128 lanes x 2 x 1.98 GHz).  The
+# operations here are Montgomery products of 8 x 32-bit limbs
+# (csrc/field.cuh::fe_mul, CIOS): 8 x (8 + 1 + 8) = 136 products of
+# 32 x 32 -> 64 bits, each at least two 32-bit integer multiply-add issue
+# slots; the INT32 lanes are half the float32 lanes, so the card issues
+# 67e12 / 4 = 16.75 T integer multiply-adds a second: 61.6 G products/s.
+HBM_BYTES_PER_S = 3.35e12
+INT32_MADS_PER_S = 67e12 / 4
+MADS_PER_PRODUCT = 272
+# products of the curve formulas (csrc/curve.cuh)
+P_DOUBLE, P_ADD, P_ADD_MIXED = 7, 16, 11
+
+
+def bound(products: int, nbytes: int) -> dict:
+    """The record fields of a kernel's bound, from the Montgomery products
+    its inputs need and the bytes it must move (each input read once, each
+    output written once).  No PyTorch call computes any of these functions
+    (256-bit modular arithmetic), so `library_ms` is null."""
+    ops_ms = products * MADS_PER_PRODUCT / INT32_MADS_PER_S * 1e3
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    return {
+        "bound_ms": max(ops_ms, bytes_ms), "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+        "library_ms": None, "products": int(products), "bytes": int(nbytes),
+    }
+
+
+def tape_products(tape) -> int:
+    """Montgomery products one lane of a tape needs (K2, K6): one a MUL,
+    and a Fermat inversion's 254 squarings plus a product per set bit of
+    r - 2 (csrc/field.cuh::fe_inv)."""
+    from halo2_aggregation_tpu_torch.fields import R
+    from halo2_aggregation_tpu_torch.plonk.protocol_ops import OP_INV, OP_MUL
+
+    ops = tape.instrs[:, 0]
+    return int((ops == OP_MUL).sum()) + int((ops == OP_INV).sum()) * (254 + bin(R - 2).count("1"))
 
 
 def max_abs_err(a: list, b: list) -> int:
@@ -149,9 +192,9 @@ def k1_lanes(n: int, rng):
     scalars < r, and mixed in: identity points, zero scalars, scalars 1,
     r - 1 and 2^256 - 1, and scalars whose ladder adds acc == +-table[d]
     (the doubling and cancelling cases of jac_add)."""
-    from halo2_aggregation_tpu.fields import R
-    from halo2_aggregation_tpu.oracle import curve as oc
-    from halo2_aggregation_tpu.utils import native
+    from halo2_aggregation_tpu_torch.fields import R
+    from halo2_aggregation_tpu_torch.oracle import curve as oc
+    from halo2_aggregation_tpu_torch.utils import native
 
     if not native.available():
         raise RuntimeError("the native host engine is needed to make K1's test points")
@@ -179,10 +222,10 @@ def phase_k1(device):
     import numpy as np
     import torch
 
-    from halo2_aggregation_tpu.oracle import curve as oc
     from halo2_aggregation_tpu_torch.ops import curve_ops as co
     from halo2_aggregation_tpu_torch.ops.ec_kernels import scalar_mul_win
     from halo2_aggregation_tpu_torch.ops.limbs import ints_to_tensor
+    from halo2_aggregation_tpu_torch.oracle import curve as oc
 
     n = B * 36  # the main path's lanes: 35 multiopen lanes + the e-lane
     rng = np.random.default_rng(SEED)
@@ -213,20 +256,26 @@ def phase_k1(device):
     if [got[i] for i in idx] != oracle:
         raise AssertionError("K1 != oracle g1_mul on the first 16 lanes")
     ms = cuda_ms(lambda: scalar_mul_win(P, s), reps=5)
+    # a lane: the table (7 doublings, 7 adds), 63 x 4 doublings, and an add
+    # for every nonzero window but the first (the identity absorbs that one
+    # and every add of an identity point)
+    live = [k for p, k in zip(pts, ks) if p is not None]
+    adds = sum(max(0, sum(1 for w in range(64) if (k >> (4 * w)) & 15) - 1) for k in live)
+    products = n * (7 + 252) * P_DOUBLE + len(live) * 7 * P_ADD + adds * P_ADD
     rec = {
         "name": "ec_win", "route": "cuda",
         "source": "halo2_aggregation_tpu_torch/csrc/ec_win.cu",
         "replaces": "halo2_aggregation_tpu/ops/ec_pallas.py:354",
-        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **bound(products, n * 32 * (3 + 1 + 3)),
     }
     emit({
         "phase": "k1", "lanes": n, "doubling_cases": n_special, "oracle_lanes": 16,
         "tolerance": "exact: equal affine points", **rec,
     })
-    return rec, phase_k8(P, s, got)
+    return rec, phase_k8(P, s, got, pts, ks)
 
 
-def phase_k8(P, s, k1_affine):
+def phase_k8(P, s, k1_affine, pts, ks):
     """K8 on K1's lanes over all 256 bits (the lanes hold 2^256 - 1):
     affine-equal to K1 and to its plain version; ragged equals full."""
     import torch
@@ -249,11 +298,14 @@ def phase_k8(P, s, k1_affine):
     if got != k1_affine:
         raise AssertionError("K8 != K1 on the same lanes")
     ms = cuda_ms(lambda: scalar_mul_ladder(P, s, 256), reps=3)
+    # a lane: 256 doublings, and an add for every set bit but the first
+    adds = sum(max(0, bin(k).count("1") - 1) for p, k in zip(pts, ks) if p is not None)
     rec = {
         "name": "ec_ladder", "route": "cuda",
         "source": "halo2_aggregation_tpu_torch/csrc/ec_ladder.cu",
         "replaces": "halo2_aggregation_tpu/ops/ec_pallas.py:317",
         "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+        **bound(n * 256 * P_DOUBLE + adds * P_ADD, n * 32 * (3 + 1 + 3)),
     }
     emit({"phase": "k8", "lanes": n, "nbits": 256, "equal_to_k1": True,
           "tolerance": "exact: equal affine points", **rec})
@@ -261,10 +313,10 @@ def phase_k8(P, s, k1_affine):
 
 
 def make_proofs():
-    from halo2_aggregation_tpu.models import simple_example as se
-    from halo2_aggregation_tpu.plonk import kzg
-    from halo2_aggregation_tpu.plonk.keygen import keygen
-    from halo2_aggregation_tpu.plonk.prover import create_proof
+    from halo2_aggregation_tpu_torch.models import simple_example as se
+    from halo2_aggregation_tpu_torch.plonk import kzg
+    from halo2_aggregation_tpu_torch.plonk.keygen import keygen
+    from halo2_aggregation_tpu_torch.plonk.prover import create_proof
 
     params = kzg.setup(K)
     circuit = se.MyCircuit(constant=7, a=2, b=3)
@@ -282,10 +334,10 @@ def make_proofs():
 def phase_k2(params, vk, protos, device):
     import torch
 
-    from halo2_aggregation_tpu.plonk.verifier import parse_proof
     from halo2_aggregation_tpu_torch.ops import field_ops as fo
     from halo2_aggregation_tpu_torch.plonk import fa_fused as ff
     from halo2_aggregation_tpu_torch.plonk.protocol_ops import IntInvOps
+    from halo2_aggregation_tpu_torch.plonk.verifier import parse_proof
     from halo2_aggregation_tpu_torch.plonk.verifier_device import batch_proofs
 
     comms = [[params.commit_lagrange(col) for col in insts] for insts, _ in protos]
@@ -321,6 +373,7 @@ def phase_k2(params, vk, protos, device):
         "source": "halo2_aggregation_tpu_torch/csrc/fa_tape.cu",
         "replaces": "halo2_aggregation_tpu/plonk/fa_fused.py:275",
         "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+        **bound(B * tape_products(tape), inputs.numel() * 4 + out.numel() * 4 + tape.instrs.size * 4),
     }
     emit({
         "phase": "k2", "batch": B, "tape_instrs": int(tape.instrs.shape[0]),
@@ -332,9 +385,9 @@ def phase_k2(params, vk, protos, device):
 def phase_main(params, vk, protos, device):
     import torch
 
-    from halo2_aggregation_tpu.plonk.verifier import verify_proof
     from halo2_aggregation_tpu_torch.ops.ec_kernels import scalar_mul_ladder, scalar_mul_win
     from halo2_aggregation_tpu_torch.plonk.fa_fused import fa_tape_eval
+    from halo2_aggregation_tpu_torch.plonk.verifier import verify_proof
     from halo2_aggregation_tpu_torch.plonk.verifier_device import verify_batch
 
     insts = [protos[i % 4][0] for i in range(B)]
@@ -504,7 +557,7 @@ def reset_ntt_launches() -> None:
 
 def coset_shifts(cs, k: int) -> list:
     """The four coset shifts g * omega_ext^j of `create_proof_native`."""
-    from halo2_aggregation_tpu.fields import FR_GENERATOR, R, fr_omega
+    from halo2_aggregation_tpu_torch.fields import FR_GENERATOR, R, fr_omega
 
     ext_k = k + max(1, (cs.degree() - 2).bit_length())
     return [FR_GENERATOR * pow(fr_omega(ext_k), j, R) % R for j in range(1 << (ext_k - k))]
@@ -516,10 +569,10 @@ def phase_ntt(device, k: int = 21, cols: int = 4):
     import numpy as np
     import torch
 
-    from halo2_aggregation_tpu.fields import FR_GENERATOR, R
-    from halo2_aggregation_tpu.plonk import engine
+    from halo2_aggregation_tpu_torch.fields import FR_GENERATOR, R
     from halo2_aggregation_tpu_torch.ops import ntt as nt
     from halo2_aggregation_tpu_torch.ops.limbs import port_to_u64, u64_to_port
+    from halo2_aggregation_tpu_torch.plonk import engine
 
     n = 1 << k
     rng = np.random.default_rng(SEED + k)
@@ -569,17 +622,24 @@ def phase_ntt(device, k: int = 21, cols: int = 4):
         "kernel_ms": ms, "plain_ms": {"ntt": ntt_plain_ms, "intt": intt_plain_ms, "ew_mul_col": ew_plain_ms},
     })
     src = "halo2_aggregation_tpu_torch/csrc/"
+    # a transform: one twiddle product a butterfly, k stages of n / 2 (the
+    # inverse also scales by 1/n); in place: the columns read and written
+    # once, the table read once.  ew_mul_col: one product an element.
+    col_bytes = cols * n * 32
     return {
         "ntt": {"name": "ntt", "route": "cuda", "source": src + "ntt.cu",
                 "replaces": "halo2_aggregation_tpu/ops/ntt_pallas.py:117",
-                "max_abs_err": errs["ntt"], "ms": ms["ntt"], "plain_ms": ntt_plain_ms},
+                "max_abs_err": errs["ntt"], "ms": ms["ntt"], "plain_ms": ntt_plain_ms,
+                **bound(cols * k * (n // 2), 2 * col_bytes + (n // 2) * 32)},
         "intt": {"name": "intt", "route": "cuda", "source": src + "ntt.cu",
                  "replaces": "halo2_aggregation_tpu/ops/ntt_pallas.py:308",
-                 "max_abs_err": errs["intt"], "ms": ms["intt"], "plain_ms": intt_plain_ms},
+                 "max_abs_err": errs["intt"], "ms": ms["intt"], "plain_ms": intt_plain_ms,
+                 **bound(cols * (k * (n // 2) + n), 2 * col_bytes + (n // 2) * 32)},
         "ew": {"name": "ew", "route": "cuda", "source": src + "ew.cu",
                "replaces": "halo2_aggregation_tpu/ops/ntt_pallas.py:179",
                "max_abs_err": max(errs["ew_mul_col"], errs["ew_mul_scalar"], errs["pow_series"]),
-               "ms": ms["ew_mul_col"], "plain_ms": ew_plain_ms},
+               "ms": ms["ew_mul_col"], "plain_ms": ew_plain_ms,
+               **bound(cols * n, 2 * col_bytes + n * 32)},
     }
 
 
@@ -589,12 +649,12 @@ def phase_quotient(device, k: int = 21):
     import numpy as np
     import torch
 
-    from halo2_aggregation_tpu.fields import R
-    from halo2_aggregation_tpu.models import aggregation_circuit as ac
-    from halo2_aggregation_tpu.plonk.circuit import ConstraintSystem
+    from halo2_aggregation_tpu_torch.fields import R
+    from halo2_aggregation_tpu_torch.models import aggregation_circuit as ac
     from halo2_aggregation_tpu_torch.ops import ntt as nt
     from halo2_aggregation_tpu_torch.ops.limbs import u64_to_port
     from halo2_aggregation_tpu_torch.plonk import quotient_program as qp
+    from halo2_aggregation_tpu_torch.plonk.circuit import ConstraintSystem
     from halo2_aggregation_tpu_torch.plonk.quotient_device import DeviceQuotient
 
     cs = ConstraintSystem()
@@ -622,6 +682,7 @@ def phase_quotient(device, k: int = 21):
         coset_s.append(time.perf_counter() - t0)
     launches = ntt_launches()
     peak = torch.cuda.max_memory_allocated(device)
+    C = len(dq.key_order)
 
     # K6 against its plain version on the last coset (dq.ext holds it)
     shift = shifts[-1]
@@ -654,18 +715,35 @@ def phase_quotient(device, k: int = 21):
         "finalize_s": finalize_s, "coset_s": coset_s, "coset_s_median": statistics.median(coset_s),
         "k6_windows_equal": list(windows), "k6_all_rows_equal": True, "tolerance": "exact: equal bits",
         "kernel_ms": ms, "k6_plain_ms_all_rows": plain_ms,
+        # K3 and K4 at this phase's width (all columns at once), as phase_ntt counts them
+        "bound_ms": {
+            "ntt": bound(C * k * (n // 2), 2 * C * n * 32 + (n // 2) * 32)["bound_ms"],
+            "intt": bound(C * (k * (n // 2) + n), 2 * C * n * 32 + (n // 2) * 32)["bound_ms"],
+            "ew_mul_col": bound(C * n, 2 * C * n * 32 + n * 32)["bound_ms"],
+        },
         "peak_device_mib": peak / 2**20, "launches": launches,
     })
     return {"name": "quotient_tape", "route": "cuda",
             "source": "halo2_aggregation_tpu_torch/csrc/quotient_tape.cu",
             "replaces": "halo2_aggregation_tpu/plonk/quotient_device.py:803",
-            "max_abs_err": err, "ms": ms["quotient_tape"], "plain_ms": plain_ms}
+            "max_abs_err": err, "ms": ms["quotient_tape"], "plain_ms": plain_ms,
+            # a row: the tape's products; the resident columns and x read
+            # once, one output column written
+            **bound(n * tape_products(dq.program.tape), (len(dq.key_order) + 2) * n * 32)}
 
 
 MSM_KERNELS = {
     True: ("msm_s5", "halo2_aggregation_tpu/ops/ec_pallas.py:490"),
     False: ("msm_u4", "halo2_aggregation_tpu/ops/ec_pallas.py:408"),
 }
+
+
+def msm_bound(digits, signed: bool) -> dict:
+    """The bound of K7 (`signed`) or K9 on these digits: one mixed (full)
+    add for every nonzero digit; the points read once, the digits once."""
+    nonzero = int(((digits & 31) != 0).sum())
+    n_win, n = digits.shape
+    return bound(nonzero * (P_ADD_MIXED if signed else P_ADD), n * 64 + n_win * n + 96)
 
 
 def msm_launches() -> dict:
@@ -691,16 +769,16 @@ def phase_msm(device, k: int = 21, k_edge: int = 14, k_prove: int = 16) -> dict:
     import numpy as np
     import torch
 
-    from halo2_aggregation_tpu.fields import R
-    from halo2_aggregation_tpu.plonk import kzg
-    from halo2_aggregation_tpu.utils import native
-    from halo2_aggregation_tpu.utils.u64 import ints_to_u64, u64_to_points
+    from halo2_aggregation_tpu_torch.fields import R
     from halo2_aggregation_tpu_torch.ops import curve_ops as co
     from halo2_aggregation_tpu_torch.ops import field_ops as fo
     from halo2_aggregation_tpu_torch.ops import msm as m
     from halo2_aggregation_tpu_torch.ops import msm_kernels as mk
     from halo2_aggregation_tpu_torch.ops.limbs import ints_to_tensor, u64_to_port
+    from halo2_aggregation_tpu_torch.plonk import kzg
     from halo2_aggregation_tpu_torch.plonk.kzg import DeviceSRS
+    from halo2_aggregation_tpu_torch.utils import native
+    from halo2_aggregation_tpu_torch.utils.u64 import u64_to_points
 
     def affine(p):
         return co.jac_to_ints(co.JacPoint(*(c[None] for c in p)))[0]
@@ -744,14 +822,15 @@ def phase_msm(device, k: int = 21, k_edge: int = 14, k_prove: int = 16) -> dict:
     # whole commitment (H2D of the column, recoding, kernels, D2H)
     s_dev = torch.from_numpy(u64_to_port(col)).to(device)
     P = srs.points
-    kernel_ms, recode_ms, commit_s = {}, {}, {}
+    kernel_ms, recode_ms, commit_s, bound_k = {}, {}, {}, {}
     for signed in (True, False):
         name = MSM_KERNELS[signed][0]
         recode = m.signed_windows if signed else m.unsigned_windows
         digits = recode(s_dev)
         launch = mk.msm_bucket_s5 if signed else mk.msm_bucket_u4
-        chunks = m.choose_chunks(n, signed)
+        chunks = m.choose_chunks(n, signed, *mk.occupancy(signed))
         kernel_ms[name] = cuda_ms(lambda: launch(P.x, P.y, digits, chunks), reps=3)
+        bound_k[name] = msm_bound(digits, signed)
         recode_ms[name] = cuda_ms(lambda: recode(s_dev), reps=3)
         _, commit_ms = host_ms(lambda: srs.commit_lagrange(col, signed=signed))
         commit_s[name] = commit_ms / 1e3
@@ -766,17 +845,18 @@ def phase_msm(device, k: int = 21, k_edge: int = 14, k_prove: int = 16) -> dict:
     s_p = torch.from_numpy(u64_to_port(col_p)).to(device)
     xp, yp = P.x[:npr], P.y[:npr]
     native_p = native.g1_msm_u64(params.g_lagrange_u64[:npr], params.g_lagrange_inf[:npr], col_p)
-    prove_ms, prove_plain_ms = {}, {}
+    prove_ms, prove_plain_ms, prove_bound = {}, {}, {}
     for signed in (True, False):
         name = MSM_KERNELS[signed][0]
         digits = (m.signed_windows if signed else m.unsigned_windows)(torch.where(P.inf[:npr, None], 0, s_p))
         launch = mk.msm_bucket_s5 if signed else mk.msm_bucket_u4
-        C = m.choose_chunks(npr, signed)
+        C = m.choose_chunks(npr, signed, *mk.occupancy(signed))
         got = affine(launch(xp, yp, digits, C))
         ref, prove_plain_ms[name] = host_ms(lambda: m.msm_bucket_plain(xp, yp, digits, signed, C))
         if got != affine(ref) or got != native_p:
             raise AssertionError(f"{name} at n = 2^{k_prove}: kernel {got}, plain {affine(ref)}, native {native_p}")
         prove_ms[name] = cuda_ms(lambda: launch(xp, yp, digits, C), reps=5)
+        prove_bound[name] = msm_bound(digits, signed)
 
     # edge lanes at a ragged n near 2^k_edge on the SRS's first points
     ne = (1 << k_edge) - 3
@@ -790,14 +870,17 @@ def phase_msm(device, k: int = 21, k_edge: int = 14, k_prove: int = 16) -> dict:
     records = {}
     for signed in (True, False):
         name, replaces = MSM_KERNELS[signed]
-        C = m.choose_chunks(ne, signed)
-        # one chunk, one scalar: P, -P (identity branch), P, P (doubling)
+        C = m.choose_chunks(ne, signed, *mk.occupancy(signed))
+        # adjacent rows of one chunk, one scalar: P, -P (sorted by digit they
+        # meet back to back: the identity branch), P, P (the doubling branch)
         r = 6
+        if (r + 3) // mk.chunk_len(ne, C) != r // mk.chunk_len(ne, C):
+            raise AssertionError("the edge rows do not share a chunk")
         xe, ye, ke = x.clone(), y.clone(), list(ks)
         for j, neg in ((1, True), (2, False), (3, False)):
-            xe[r + j * C] = xe[r]
-            ye[r + j * C] = fo.neg(ye[r], fo.FQ) if neg else ye[r]
-            ke[r + j * C] = ke[r]
+            xe[r + j] = xe[r]
+            ye[r + j] = fo.neg(ye[r], fo.FQ) if neg else ye[r]
+            ke[r + j] = ke[r]
         A = co.AffinePoint(xe, ye, inf)
         s = ints_to_tensor(ke, device)
         got = affine(m.msm(A, s, signed=signed))
@@ -812,15 +895,20 @@ def phase_msm(device, k: int = 21, k_edge: int = 14, k_prove: int = 16) -> dict:
         records[name] = {
             "name": name, "route": "cuda", "source": "halo2_aggregation_tpu_torch/csrc/msm.cu",
             "replaces": replaces, "max_abs_err": max_abs_err([got], [want]),
-            "ms": prove_ms[name], "plain_ms": prove_plain_ms[name], "n": npr,
-            "ms_at_2^%d" % k: kernel_ms[name], "launches": launches[name],
+            "ms": prove_ms[name], "plain_ms": prove_plain_ms[name], "n": npr, **prove_bound[name],
+            "ms_at_2^%d" % k: kernel_ms[name], "bound_ms_at_2^%d" % k: bound_k[name]["bound_ms"],
+            "launches": launches[name],
             "edge_ms": cuda_ms(lambda: launch(xe, ye, digits, C), reps=5), "edge_plain_ms": plain_ms,
         }
     emit({
         "phase": "msm", "k": k, "n": n, "tolerance": "exact: equal affine points",
         "equal_to_native": list(cases), "setup_s": setup_s, "srs_upload_to_mont_s": upload_s,
         "native_host_msm_s": native_s, "kernel_ms": kernel_ms, "recode_ms": recode_ms,
-        "commit_s": commit_s, "chunks": {MSM_KERNELS[sg][0]: m.choose_chunks(n, sg) for sg in (True, False)},
+        "commit_s": commit_s,
+        # the chosen C, the blocks an SM holds and the waves the grid fills
+        "grid": {MSM_KERNELS[sg][0]: m.grid_shape(n, sg, *mk.occupancy(sg)) for sg in (True, False)},
+        "prove_n_grid": {MSM_KERNELS[sg][0]: m.grid_shape(npr, sg, *mk.occupancy(sg)) for sg in (True, False)},
+        "bound_ms": {nm: b["bound_ms"] for nm, b in bound_k.items()},
         "peak_device_mib": peak / 2**20, "launches": launches,
         "prove_n": npr, "prove_n_equal_plain_and_native": True,
         "prove_n_kernel_ms": prove_ms, "prove_n_plain_ms": prove_plain_ms,
@@ -836,8 +924,8 @@ def prove_commitments(cs) -> int:
     (permuted input and table), the permutation products, the lookup
     products, the random r, the h pieces and one multiopen witness per
     rotation set."""
-    from halo2_aggregation_tpu.plonk.protocol import query_schedule, rotation_sets
-    from halo2_aggregation_tpu.plonk.verifier import num_perm_chunks
+    from halo2_aggregation_tpu_torch.plonk.protocol import query_schedule, rotation_sets
+    from halo2_aggregation_tpu_torch.plonk.verifier import num_perm_chunks
 
     chunks = num_perm_chunks(cs)
     lookups = len(cs.lookups)
@@ -847,19 +935,19 @@ def prove_commitments(cs) -> int:
 
 def phase_prove(device, k: int = 16) -> dict:
     """The prover's path: keygen_device and create_proof_device on the card,
-    sharing one DeviceSRS, against the JAX package's host keygen_native and
+    sharing one DeviceSRS, against the port's host keygen_native and
     create_proof_native.  Returns the K3-K7 launch counts of the device
     prove."""
     import torch
 
-    from halo2_aggregation_tpu.models import simple_example as se
-    from halo2_aggregation_tpu.plonk import kzg
-    from halo2_aggregation_tpu.plonk.keygen import keygen_native
-    from halo2_aggregation_tpu.plonk.prover_native import create_proof_native
-    from halo2_aggregation_tpu.plonk.verifier import verify_proof
+    from halo2_aggregation_tpu_torch.models import simple_example as se
+    from halo2_aggregation_tpu_torch.plonk import kzg
+    from halo2_aggregation_tpu_torch.plonk.keygen import keygen_native
     from halo2_aggregation_tpu_torch.plonk.keygen_device import keygen_device
     from halo2_aggregation_tpu_torch.plonk.kzg import DeviceSRS
     from halo2_aggregation_tpu_torch.plonk.prover_device import create_proof_device
+    from halo2_aggregation_tpu_torch.plonk.prover_native import create_proof_native
+    from halo2_aggregation_tpu_torch.plonk.verifier import verify_proof
 
     t0 = time.perf_counter()
     params = kzg.setup(k)
@@ -980,9 +1068,10 @@ def main() -> int:
     # K7 is on the prover's path; K9 on DeviceSRS(signed=False) in `msm`
     msm_recs["msm_s5"]["launches"] = prove_launches["msm_s5"]
     emit({"kernels": [k1, k2, *recs.values(), msm_recs["msm_s5"], k8, msm_recs["msm_u4"]]})
-    loaded = sorted(m for m, v in sys.modules.items() if v is not None and m.split(".")[0] == "jax")
+    loaded = sorted(m for m, v in sys.modules.items()
+                    if v is not None and m.split(".")[0] in ("jax", "jaxlib", "halo2_aggregation_tpu"))
     if loaded:
-        raise AssertionError(f"JAX modules were loaded: {loaded[:5]}")
+        raise AssertionError(f"modules of JAX or the JAX package were loaded: {loaded[:5]}")
     emit({
         "ok": True,
         "device": {

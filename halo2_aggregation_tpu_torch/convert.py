@@ -1,29 +1,110 @@
 """State carried over from the JAX package into the port.
 
-The vk, `pk`, `Params`, assignments and proofs are shared host objects,
-so only the JAX package's limb arrays need converting: its `VerifierBatch`
-(with numpy or jax array leaves), its point and scalar arrays, the
-quotient engine's coefficient columns, the NTT plan's twiddle tables and
-the resident SRS of `Params._device_points`, from `(..., 32)` 8-bit limbs
-to the port's `(..., 8)` 32-bit limbs.
-Montgomery form is the same (R = 2^256), so this is repacking (and, for
-the quotient columns, the bit-reversal permutation) only.  Nothing here
-imports jax: the JAX objects are read by attribute and through
-`np.asarray`.
+This is the one place that takes the JAX package's objects, and it takes
+them by attribute: nothing of that package (and nothing of jax) is
+imported here.  Two kinds of state cross over:
+
+* host objects (`Params`, `VerifyingKey`, `ProvingKey`, `Assignment`, and
+  the constraint system they hold): `params_from_reference`,
+  `keys_from_reference`, `constraint_system_from_reference` and
+  `assignment_from_reference` rebuild each as the
+  port's own class of the same name, from its numpy arrays, ints and
+  nested objects, so both packages compute on the same SRS, keys and
+  witness;
+* limb arrays: the JAX `VerifierBatch` (numpy or jax array leaves), point
+  and scalar arrays, the quotient engine's coefficient columns, the NTT
+  plan's twiddle tables and the resident SRS of `Params._device_points`,
+  from `(..., 32)` 8-bit limbs to the port's `(..., 8)` 32-bit limbs.
+  Montgomery form is the same (R = 2^256), so this is repacking (and, for
+  the quotient columns, the bit-reversal permutation) only.
 """
 
 from __future__ import annotations
 
+import enum
+import importlib
+
 import numpy as np
 import torch
-
-from halo2_aggregation_tpu.plonk.protocol import LookupEvals, PermutationSetEvals
 
 from .device import resolve_device
 from .ops.curve_ops import AffinePoint, JacPoint
 from .ops.limbs import jax_to_port
 from .ops.ntt import bit_reverse_indices
+from .plonk.protocol import LookupEvals, PermutationSetEvals
 from .plonk.verifier_device import VerifierBatch
+
+
+_REFERENCE = "halo2_aggregation_tpu"
+
+
+def _rehome(obj, memo):
+    """`obj` with every instance of a class of the JAX package replaced by
+    an instance of the port's class of the same module path and name,
+    attributes converted in turn.  Containers are rebuilt (dict and set
+    keys re-hash under the new classes); arrays, numbers, strings and
+    bytes pass as they are.  `memo` keeps shared objects shared."""
+    if obj is None or isinstance(obj, (bool, int, float, str, bytes, np.ndarray, np.generic)):
+        return obj
+    if id(obj) in memo:
+        return memo[id(obj)]
+    cls = type(obj)
+    mod = cls.__module__
+    ours = None
+    if mod == _REFERENCE or mod.startswith(_REFERENCE + "."):
+        target = importlib.import_module(__package__ + mod[len(_REFERENCE):])
+        ours = getattr(target, cls.__qualname__)
+    if isinstance(obj, enum.Enum):
+        return ours[obj.name] if ours is not None else obj
+    if isinstance(obj, list):
+        out = memo[id(obj)] = []
+        out.extend(_rehome(v, memo) for v in obj)
+        return out
+    if isinstance(obj, tuple):
+        items = [_rehome(v, memo) for v in obj]
+        if ours is not None:
+            return ours(*items)  # a NamedTuple of the package
+        return tuple(items) if cls is tuple else cls(*items)
+    if isinstance(obj, dict):
+        out = memo[id(obj)] = cls() if cls is not dict else {}
+        for key, v in obj.items():
+            out[_rehome(key, memo)] = _rehome(v, memo)
+        return out
+    if isinstance(obj, (set, frozenset)):
+        return cls(_rehome(v, memo) for v in obj)
+    if ours is None:
+        raise TypeError(f"cannot carry over a {mod}.{cls.__qualname__}")
+    out = memo[id(obj)] = ours.__new__(ours)
+    for name, v in vars(obj).items():
+        object.__setattr__(out, name, _rehome(v, memo))
+    return out
+
+
+def params_from_reference(params):
+    """A JAX-package `kzg.Params` -> the port's `Params` over the same SRS
+    arrays (not copied) and G2 points."""
+    from .plonk.kzg import Params
+
+    return Params(params.k, params.g_lagrange_u64, params.g_lagrange_inf, params.g2, params.s_g2)
+
+
+def keys_from_reference(key):
+    """A JAX-package `VerifyingKey` or `ProvingKey` (its vk, constraint
+    system and columns included) -> the port's."""
+    return _rehome(key, {})
+
+
+def constraint_system_from_reference(cs):
+    """A JAX-package `ConstraintSystem` (columns, gates, lookups, queries,
+    permutation) -> the port's."""
+    return _rehome(cs, {})
+
+
+def assignment_from_reference(assignment):
+    """A JAX-package `Assignment` (with its constraint system) -> the
+    port's.  Convert keys and assignment that share a constraint system
+    separately: each gets its own equal copy."""
+    return _rehome(assignment, {})
 
 
 def scalars_from_jax(arr, device) -> torch.Tensor:

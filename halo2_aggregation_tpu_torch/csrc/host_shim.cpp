@@ -96,21 +96,39 @@ void h2a_host_ec_ladder(const uint32_t* px, const uint32_t* py,
   }
 }
 
-// The bucket pass and fold of every thread (w, c) of K7 (is_signed) or K9:
-// partials (n_win, C, 3, 8) from digits (n_win, n) and points xs, ys (n, 8).
-void h2a_host_msm_partials(int is_signed, const uint32_t* xs,
-                           const uint32_t* ys, const uint8_t* digits, int n,
-                           int C, uint32_t* partials) {
+// The counting sort of chunk c (of C contiguous chunks) of one window's row
+// of n digits, as thread (w, c) of K7 (is_signed) or K9 runs it: order
+// (chunk length) uint16 entries, of which the first `return value` are
+// written, and ends (buckets + 1): ends[m] the end of magnitude m's run.
+int h2a_host_msm_sort(int is_signed, const uint8_t* dig, int n, int c, int C,
+                      uint16_t* order, uint32_t* ends) {
+  uint32_t L = ((uint32_t)n + C - 1) / C, lo = (uint32_t)c * L;
+  if (lo >= (uint32_t)n) return 0;
+  uint32_t len = ((uint32_t)n - lo < L) ? (uint32_t)n - lo : L;
+  return (int)(is_signed ? msm_sort_chunk<true>(dig + lo, len, order, ends, 1)
+                         : msm_sort_chunk<false>(dig + lo, len, order, ends, 1));
+}
+
+// Sort, walk and fold of every thread (w, c) of K7 (is_signed) or K9 over C
+// contiguous chunks: partials (n_win, C, 3, 8) from digits (n_win, n) and
+// points xs, ys (n, 8), with scratch order (n_win, n) uint16 and bsums
+// (n_win, C, buckets, 3, 8).
+void h2a_host_msm_partials(int is_signed, const uint32_t* xs, const uint32_t* ys,
+                           const uint8_t* digits, int n, int C,
+                           uint16_t* order, uint32_t* bsums,
+                           uint32_t* partials) {
   int n_win = is_signed ? MsmKind<true>::WINDOWS : MsmKind<false>::WINDOWS;
+  int nb = is_signed ? MsmKind<true>::BUCKETS : MsmKind<false>::BUCKETS;
+  uint32_t L = ((uint32_t)n + C - 1) / C;
+  uint32_t cnt[MsmKind<true>::BUCKETS + 1];
   for (int w = 0; w < n_win; w++) {
     for (int c = 0; c < C; c++) {
       const uint8_t* dig = digits + (size_t)w * n;
-      Jac r = is_signed ? msm_chunk<true>(xs, ys, dig, n, c, C)
-                        : msm_chunk<false>(xs, ys, dig, n, c, C);
-      uint32_t* o = partials + ((size_t)w * C + c) * 3 * NL;
-      store(o, r.x);
-      store(o + NL, r.y);
-      store(o + 2 * NL, r.z);
+      uint16_t* ord = order + (size_t)w * n;
+      uint32_t* bs = bsums + ((size_t)w * C + c) * nb * kJacWords;
+      Jac r = is_signed ? msm_chunk<true>(xs, ys, dig, n, c, L, ord, bs, cnt, 1)
+                        : msm_chunk<false>(xs, ys, dig, n, c, L, ord, bs, cnt, 1);
+      msm_store_jac(partials + ((size_t)w * C + c) * kJacWords, r);
     }
   }
 }

@@ -1,32 +1,41 @@
 // Kernels K7 and K9: the bucket (Pippenger) MSM, sum_i s_i * P_i over
 // affine BN254 G1 points, in two launches per MSM.
 //
-// Replaces halo2_aggregation_tpu/ops/ec_pallas.py::_msm_kernel_s5 (:490-601,
-// via msm_bucket_pallas_s5 :899-1037; K7: signed 5-bit digits, mixed adds,
-// in-kernel bucket fold) and ::_msm_kernel (:408-487, via msm_bucket_pallas
-// :736-858; K9: unsigned 4-bit digits, full adds).  The TPU kernels gave each
-// of 128 lanes private buckets in VMEM and streamed point tiles past them,
-// one grid step at a time; the chunk sums and the Horner across windows ran
-// outside in XLA.  Here:
+// K7 replaces halo2_aggregation_tpu/ops/ec_pallas.py::_msm_kernel_s5
+// (:490-601, via msm_bucket_pallas_s5 :899-1037: signed 5-bit digits, mixed
+// adds, in-kernel bucket fold); K9 replaces ::_msm_kernel (:408-487, via
+// msm_bucket_pallas :736-858: unsigned 4-bit digits, full adds).  The TPU
+// kernels gave each of 128 lanes private buckets in VMEM and streamed point
+// tiles past them, one grid step at a time; the chunk sums and the Horner
+// across windows ran outside in XLA.
 //
-// 1. msm_bucket_kernel: one thread per (window w, chunk c), C chunks a
-//    window.  The thread keeps its 16 (K7) or 15 (K9) buckets in local
-//    memory (96 B each), strides over the points i = c, c + C, ... so that a
-//    warp reads consecutive points and digits, adds each point into bucket
-//    |d| (msm.cuh::msm_chunk) and folds its buckets into one point,
-//    partials[w][c].  The last chunk is ragged: the stride loop stops at n.
+// What bounds them on the H100: the Montgomery products of the adds.  At
+// n = 2^21, K7 makes 52 x 2^21 mixed adds of 11 products (1.20 G products,
+// 19.6 ms at the card's 61 G products a second), K9 64 x 2^21 full adds of
+// 16 (2.15 G, 35.2 ms).  The bytes are far below that: every point is read
+// once a window (7 to 9 GB of 32-byte sectors, mostly from L2) and the
+// digits twice.
+//
+// What the design does about it: nothing but the adds may cost time a
+// point, so no bucket lives in local memory and no add waits on a
+// data-dependent store.
+// 1. msm_bucket_kernel: one thread per (window w, chunk c) of C contiguous
+//    chunks a window.  The thread counting-sorts its chunk by digit
+//    magnitude (histogram in shared memory, one column a thread, so no bank
+//    is shared; offsets into a uint16 scratch in device memory), then walks
+//    the sorted points with ONE bucket sum in registers, parks each finished
+//    sum in scratch, and folds the parked sums (msm.cuh).  A warp's lanes
+//    make one add an iteration each, and differ only in their chunks' zero
+//    digits.  The window is the fastest block index: the blocks of all
+//    windows over one range of chunks run together and share the points in
+//    L2.  C comes from
+//    the kernel's occupancy (h2a_msm_occupancy, ops/msm.py::choose_chunks):
+//    n_win x C / 128 blocks fill a whole number of waves.  The ragged last
+//    chunk stops at n.
 // 2. msm_combine_kernel: one block per window sums its C partials (a strided
 //    sum per thread, then a tree in shared memory) into wsums[w]; the last
 //    block to finish (a ticket counter) runs the Horner across windows and
 //    writes the one Jacobian result.
-//
-// What bounds it on the H100: the adds.  At n = 2^21, K7 does 52 x 2^21
-// mixed adds of 11 Montgomery products, about 1.2 G products; K9 64 x 2^21
-// full adds of 16.  Each add also reads and writes one bucket in local
-// memory (about 21 GB for K7 if none of it stays in L1 or L2), and each
-// point is read once per window, by threads of all windows at about the
-// same time, so mostly from L2.  C is chosen by the wrapper so that
-// n_win x C threads fill the card (ops/msm.py::choose_chunks).
 #include <cuda_runtime.h>
 
 #include "msm.cuh"
@@ -37,21 +46,11 @@ using namespace h2a;
 
 constexpr int kBucketThreads = 128;
 constexpr int kSumThreads = 128;
-constexpr int kJacWords = 3 * NL;
 
-__device__ __forceinline__ void store_jac(uint32_t* dst, const Jac& p) {
-  uint4* q = reinterpret_cast<uint4*>(dst);
-  const Fe* c[3] = {&p.x, &p.y, &p.z};
-#pragma unroll
-  for (int k = 0; k < 3; k++) {
-    q[2 * k] = make_uint4(c[k]->v[0], c[k]->v[1], c[k]->v[2], c[k]->v[3]);
-    q[2 * k + 1] = make_uint4(c[k]->v[4], c[k]->v[5], c[k]->v[6], c[k]->v[7]);
-  }
-}
-
-__device__ __forceinline__ Jac load_jac(const uint32_t* src) {
-  return Jac{msm_load(src), msm_load(src + NL), msm_load(src + 2 * NL)};
-}
+// blocks an SM should hold: caps the registers a thread (65,536 / 128 / 3).
+// On an H100 at n = 2^21 the kernels ran within 3 % of each other at 3, 4
+// and 5 (K7 61.1 / 61.8 / 63.0 ms); 3 is the one that leaves ptxas no spill.
+constexpr int kBucketMinBlocks = 3;
 
 // A load that bypasses L1: the last combine block reads the other blocks'
 // window sums, written after its own SM may have cached those lines.
@@ -64,17 +63,26 @@ __device__ __forceinline__ Fe load_fe_l2(const uint32_t* p) {
   return r;
 }
 
+// Block b covers window b % n_win and chunks [128 * (b / n_win), ...).
 template <bool SIGNED>
-__global__ void msm_bucket_kernel(const uint32_t* __restrict__ xs,
-                                  const uint32_t* __restrict__ ys,
-                                  const uint8_t* __restrict__ digits,
-                                  uint32_t n, uint32_t C,
-                                  uint32_t* __restrict__ partials) {
-  uint32_t c = blockIdx.x * blockDim.x + threadIdx.x;
-  uint32_t w = blockIdx.y;
+__global__ void __launch_bounds__(kBucketThreads, kBucketMinBlocks)
+msm_bucket_kernel(const uint32_t* __restrict__ xs,
+                  const uint32_t* __restrict__ ys,
+                  const uint8_t* __restrict__ digits, uint32_t n, uint32_t C,
+                  uint32_t L, uint16_t* __restrict__ order,
+                  uint32_t* __restrict__ bsums,
+                  uint32_t* __restrict__ partials) {
+  constexpr int W = MsmKind<SIGNED>::WINDOWS;
+  constexpr int NB = MsmKind<SIGNED>::BUCKETS;
+  __shared__ uint32_t cnt[(NB + 1) * kBucketThreads];
+  uint32_t w = blockIdx.x % W;
+  uint32_t c = (blockIdx.x / W) * kBucketThreads + threadIdx.x;
   if (c >= C) return;
-  Jac r = msm_chunk<SIGNED>(xs, ys, digits + (size_t)w * n, n, c, C);
-  store_jac(partials + ((size_t)w * C + c) * kJacWords, r);
+  size_t lane = (size_t)w * C + c;
+  Jac r = msm_chunk<SIGNED>(
+      xs, ys, digits + (size_t)w * n, n, c, L, order + (size_t)w * n,
+      bsums + lane * NB * kJacWords, cnt + threadIdx.x, kBucketThreads);
+  msm_store_jac(partials + lane * kJacWords, r);
 }
 
 template <bool SIGNED>
@@ -87,15 +95,15 @@ __global__ void msm_combine_kernel(const uint32_t* __restrict__ partials,
   const int t = threadIdx.x;
   Jac acc = jac_identity();
   for (uint32_t c = t; c < C; c += kSumThreads)
-    acc = jac_add(acc, load_jac(partials + ((size_t)w * C + c) * kJacWords));
+    acc = msm_jac_add(acc, msm_load_jac(partials + ((size_t)w * C + c) * kJacWords));
   sh[t] = acc;
   __syncthreads();
   for (int s = kSumThreads / 2; s > 0; s >>= 1) {
-    if (t < s) sh[t] = jac_add(sh[t], sh[t + s]);
+    if (t < s) sh[t] = msm_jac_add(sh[t], sh[t + s]);
     __syncthreads();
   }
   if (t != 0) return;
-  store_jac(wsums + (size_t)w * kJacWords, sh[0]);
+  msm_store_jac(wsums + (size_t)w * kJacWords, sh[0]);
   __threadfence();
   if (atomicAdd(ticket, 1u) != gridDim.x - 1) return;
   // the last block: every window sum is written and fenced
@@ -106,18 +114,21 @@ __global__ void msm_combine_kernel(const uint32_t* __restrict__ partials,
     const uint32_t* src = wsums + (size_t)v * kJacWords;
     ws[v] = Jac{load_fe_l2(src), load_fe_l2(src + NL), load_fe_l2(src + 2 * NL)};
   }
-  store_jac(out, msm_horner(ws, W, MsmKind<SIGNED>::BITS));
+  msm_store_jac(out, msm_horner(ws, W, MsmKind<SIGNED>::BITS));
   *ticket = 0;
 }
 
 template <bool SIGNED>
 int launch(const uint32_t* xs, const uint32_t* ys, const uint8_t* digits,
-           int n, int C, uint32_t* partials, uint32_t* wsums,
-           unsigned int* ticket, uint32_t* out, cudaStream_t stream) {
+           int n, int C, uint16_t* order, uint32_t* bsums, uint32_t* partials,
+           uint32_t* wsums, unsigned int* ticket, uint32_t* out,
+           cudaStream_t stream) {
   constexpr int W = MsmKind<SIGNED>::WINDOWS;
-  dim3 grid((C + kBucketThreads - 1) / kBucketThreads, W);
-  msm_bucket_kernel<SIGNED><<<grid, kBucketThreads, 0, stream>>>(
-      xs, ys, digits, (uint32_t)n, (uint32_t)C, partials);
+  uint32_t L = ((uint32_t)n + (uint32_t)C - 1) / (uint32_t)C;
+  if (L > kMsmMaxChunk) return (int)cudaErrorInvalidValue;
+  int chunk_blocks = (C + kBucketThreads - 1) / kBucketThreads;
+  msm_bucket_kernel<SIGNED><<<W * chunk_blocks, kBucketThreads, 0, stream>>>(
+      xs, ys, digits, (uint32_t)n, (uint32_t)C, L, order, bsums, partials);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   msm_combine_kernel<SIGNED><<<W, kSumThreads, 0, stream>>>(
@@ -125,18 +136,40 @@ int launch(const uint32_t* xs, const uint32_t* ys, const uint8_t* digits,
   return (int)cudaGetLastError();
 }
 
+template <bool SIGNED>
+int occupancy(int* blocks_per_sm) {
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks_per_sm, msm_bucket_kernel<SIGNED>, kBucketThreads, 0);
+}
+
 }  // namespace
 
-// One MSM on `stream`: digits (n_win, n) uint8, points xs/ys (n, 8);
-// scratch partials (n_win, C, 3, 8), wsums (n_win, 3, 8), ticket (1,) zeroed;
-// out (3, 8) Jacobian.  Returns cudaGetLastError() (0 on success).
+// One MSM on `stream`: digits (n_win, n) uint8, points xs/ys (n, 8); C
+// contiguous chunks a window, of ceil(n / C) <= 2^15 points; scratch order
+// (n_win, n) uint16, bsums (n_win, C, buckets, 3, 8), partials
+// (n_win, C, 3, 8), wsums (n_win, 3, 8), ticket (1,) zeroed; out (3, 8)
+// Jacobian.  Returns cudaGetLastError() (0 on success).
 extern "C" int h2a_msm(int is_signed, const uint32_t* xs, const uint32_t* ys,
-                       const uint8_t* digits, int n, int C,
-                       uint32_t* partials, uint32_t* wsums,
+                       const uint8_t* digits, int n, int C, uint16_t* order,
+                       uint32_t* bsums, uint32_t* partials, uint32_t* wsums,
                        unsigned int* ticket, uint32_t* out, void* stream) {
   if (n <= 0 || C <= 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  return is_signed
-             ? launch<true>(xs, ys, digits, n, C, partials, wsums, ticket, out, s)
-             : launch<false>(xs, ys, digits, n, C, partials, wsums, ticket, out, s);
+  return is_signed ? launch<true>(xs, ys, digits, n, C, order, bsums, partials,
+                                  wsums, ticket, out, s)
+                   : launch<false>(xs, ys, digits, n, C, order, bsums, partials,
+                                   wsums, ticket, out, s);
+}
+
+// The bucket kernel's occupancy on the current device: the blocks (of 128
+// threads) an SM holds at once, and the device's SMs.  The wrapper sizes C
+// to whole waves of blocks_per_sm x sms blocks.
+extern "C" int h2a_msm_occupancy(int is_signed, int* blocks_per_sm, int* sms) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return (int)err;
+  return is_signed ? occupancy<true>(blocks_per_sm)
+                   : occupancy<false>(blocks_per_sm);
 }

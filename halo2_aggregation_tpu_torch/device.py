@@ -1,4 +1,5 @@
-"""Device selection: an explicit device, and no CPU fallback for CUDA."""
+"""Device selection: the card unless the caller asks for the CPU, and no
+CPU fallback for CUDA."""
 
 from __future__ import annotations
 
@@ -15,4 +16,7 @@ def resolve_device(device) -> torch.device:
         )
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {device!r}: use 'cuda' or 'cpu'")
+    if dev.type == "cuda" and dev.index is None:
+        # "cuda" and "cuda:0" name one card: tensors report the indexed form
+        dev = torch.device("cuda", torch.cuda.current_device())
     return dev

@@ -58,8 +58,11 @@ _SIGNATURES = {
     # tape, n_instr, consts, in_src, in_rot, n_in, stack, x, uniforms, n,
     # out_reg, out, stream
     "h2a_quotient_tape": [_P, _I, _P, _P, _P, _I, _P, _P, _P, _I, _I, _P, _P],
-    # is_signed, xs, ys, digits, n, chunks, partials, wsums, ticket, out, stream
-    "h2a_msm": [_I, _P, _P, _P, _I, _I, _P, _P, _P, _P, _P],
+    # is_signed, xs, ys, digits, n, chunks, order, bsums, partials, wsums,
+    # ticket, out, stream
+    "h2a_msm": [_I, _P, _P, _P, _I, _I, _P, _P, _P, _P, _P, _P, _P],
+    # is_signed, blocks_per_sm (out), sms (out)
+    "h2a_msm_occupancy": [_I, _P, _P],
 }
 
 
@@ -169,7 +172,8 @@ def build_host_library(out_dir) -> ctypes.CDLL:
         "h2a_host_jac_add_mixed": [_P, _P, _P, _P, _I],
         "h2a_host_ec_win": [_P, _P, _P, _P, _P, _P, _P, _I],
         "h2a_host_ec_ladder": [_P, _P, _P, _P, _P, _P, _P, _I, _I],
-        "h2a_host_msm_partials": [_I, _P, _P, _P, _I, _I, _P],
+        "h2a_host_msm_sort": [_I, _P, _I, _I, _I, _P, _P],
+        "h2a_host_msm_partials": [_I, _P, _P, _P, _I, _I, _P, _P, _P],
         "h2a_host_msm_horner": [_I, _P, _P],
         "h2a_host_fa_tape": [_P, _I, _P, _P, _I, _P, _P, _I, _P, _I],
         "h2a_host_ntt_stage": [_P, _P, _I, _I, _I, _I],
@@ -179,5 +183,5 @@ def build_host_library(out_dir) -> ctypes.CDLL:
     for name, argtypes in sigs.items():
         fn = getattr(lib, name)
         fn.argtypes = argtypes
-        fn.restype = None
+        fn.restype = _I if name == "h2a_host_msm_sort" else None
     return lib

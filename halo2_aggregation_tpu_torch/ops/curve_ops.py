@@ -19,8 +19,7 @@ from typing import NamedTuple
 
 import torch
 
-from halo2_aggregation_tpu.fields import Q
-
+from ..fields import Q
 from . import field_ops as fo
 from .field_ops import FQ, is_zero, narrow, select, wadd, widen, wmul, wsub
 

@@ -24,8 +24,7 @@ from types import SimpleNamespace
 import torch
 import torch.nn.functional as F
 
-from halo2_aggregation_tpu.fields import MONT_R, Q, R
-
+from ..fields import MONT_R, Q, R
 from .limbs import NL, ints_to_tensor, tensor_to_ints
 
 WBITS = 16

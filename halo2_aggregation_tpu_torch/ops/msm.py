@@ -13,13 +13,16 @@ the chunk sums and Horner of `msm_bucket_pallas*` :1018-1037):
   from `ops/msm_kernels.py` on a CUDA tensor, or their plain version
   `msm_bucket_plain` on a CPU tensor.
 
-The plain version runs the kernels' algorithm with torch ops on
-`curve_ops`' wide form: one lane per (window, chunk), buckets gathered and
-scattered by digit (bucket 0 is a dump, as on the TPU), the running and
-suffix-sum fold, the sum over chunks and the Horner across windows.  The
-chunk count is a parameter, so the plain version, the g++ build of the
-kernels' per-thread code and the kernels can compare at one chunking; the
-chunking changes the order of the adds, never the sum.
+The plain version runs the kernels' arithmetic with torch ops on
+`curve_ops`' wide form: one lane per (window, chunk of contiguous points),
+buckets gathered and scattered by digit (bucket 0 is a dump, as on the
+TPU), the running and suffix-sum fold, the sum over chunks and the Horner
+across windows.  It adds a chunk's points in their order in memory, the
+kernels in their digit-sorted order: the order of adds inside a bucket is
+free, the buckets' sums are the same points.  The chunk count is a
+parameter, so the plain version, the g++ build of the kernels' per-thread
+code and the kernels can compare at one chunking; the chunking changes the
+order of the adds, never the sum.
 
 Not ported: the TPU tuning switches `H2A_MSM_TILE`, `H2A_MSM_WPG` and
 `H2A_MSM_KFOLD` (VMEM working-set sizes), the `H2A_MSM_SIGNED` switch
@@ -36,32 +39,57 @@ from . import msm_kernels
 from .curve_ops import AffinePoint, JacPoint, _wadd, _wadd_mixed, _wdouble, _wide_identity
 from .field_ops import FQ, is_zero, narrow, select, widen, wneg
 from .limbs import NL
-from .msm_kernels import WINDOWS, check_bucket_inputs
+from .msm_kernels import (
+    BLOCK_THREADS,
+    BUCKETS,
+    MAX_CHUNK_POINTS,
+    WINDOWS,
+    check_bucket_inputs,
+    check_chunks,
+    chunk_len,
+)
 
-# bits a window and live buckets (|d| >= 1) of K7 (True) and K9
+# bits a window of K7 (True) and K9
 BITS = {True: 5, False: 4}
-BUCKETS = {True: 16, False: 15}
 
 # t = s + H with H = sum_w 16 * 32^w: window w of t, less 16, is the signed
 # digit d_w of s (the carry of the sequential recoding is t's carry)
 _H = sum(16 << (5 * w) for w in range(WINDOWS[True]))
 _MASK32 = 0xFFFFFFFF
 
-# threads to fill an H100 (132 SMs x 512) and the fewest points a chunk
-TARGET_THREADS = 132 * 512
-MIN_POINTS_PER_CHUNK = 64
+# the fewest points a chunk: its fold (about 31 full adds, 496 products)
+# stays well below its 128 or more adds.  On the card at n = 2^16, 512
+# chunks of 128 ran 2 to 5 % faster than 1,024 of 64 and 256 of 256.
+MIN_POINTS_PER_CHUNK = 128
+# waves of blocks the bucket kernel's grid fills: at n = 2^21 two waves ran
+# 3 % faster than one and 8 to 16 % faster than four
+WAVES = 2
 # chunks of the plain version on the CPU, where nothing is to be filled:
 # few lanes keep its fold cheap
 PLAIN_CHUNKS = 4
 
 
-def choose_chunks(n: int, signed: bool) -> int:
-    """Chunks a window on the card, C: n_win x C threads fill the card
-    (n = 2^21: 52 x 1,300 for K7, 64 x 1,056 for K9), and a chunk keeps at
-    least 64 points, so that its fold (32 full adds, about 512 products)
-    stays below its 64 or more adds (n = 2^16: 1,024 chunks)."""
-    fill = -(-TARGET_THREADS // WINDOWS[signed])
-    return max(1, min(fill, n // MIN_POINTS_PER_CHUNK))
+def choose_chunks(n: int, signed: bool, blocks_per_sm: int, sms: int) -> int:
+    """Chunks a window on the card, C, from the bucket kernel's occupancy
+    (`msm_kernels.occupancy`): n_win x C / 128 blocks fill `WAVES` whole
+    waves of blocks_per_sm x sms blocks, rounded down to whole blocks a
+    window.  A chunk keeps at least 128 points where n allows, and at most
+    2^15 (the sort's offsets)."""
+    n_win = WINDOWS[signed]
+    blocks_a_window = max(1, (blocks_per_sm * sms * WAVES) // n_win)
+    chunks = min(blocks_a_window * BLOCK_THREADS, max(1, n // MIN_POINTS_PER_CHUNK))
+    return max(chunks, -(-n // MAX_CHUNK_POINTS))
+
+
+def grid_shape(n: int, signed: bool, blocks_per_sm: int, sms: int) -> dict:
+    """What `choose_chunks` leads to, for the records: chunks, points a
+    chunk, blocks of the grid and the waves they fill."""
+    chunks = choose_chunks(n, signed, blocks_per_sm, sms)
+    blocks = WINDOWS[signed] * -(-chunks // BLOCK_THREADS)
+    return {
+        "chunks": chunks, "points_a_chunk": chunk_len(n, chunks), "blocks": blocks,
+        "blocks_per_sm": blocks_per_sm, "sms": sms, "waves": blocks / (blocks_per_sm * sms),
+    }
 
 
 def _limbs64(scalars: torch.Tensor) -> torch.Tensor:
@@ -105,11 +133,12 @@ def unsigned_windows(scalars: torch.Tensor) -> torch.Tensor:
 
 
 def bucket_partials_plain(xs, ys, digits, signed: bool, chunks: int) -> JacPoint:
-    """The bucket pass and fold of every (window w, chunk c): the plain
-    version of `csrc/msm.cuh::msm_chunk`.  Chunk c takes the points
-    i = c, c + C, ...; returns (n_win, C, 8) Jacobian folds
-    sum_m m * bucket_m."""
+    """The bucket sums and fold of every (window w, chunk c): the plain
+    version of `csrc/msm.cuh::msm_chunk`.  Chunk c takes the contiguous
+    points [c * L, min(n, (c + 1) * L)), L = ceil(n / C); returns
+    (n_win, C, 8) Jacobian folds sum_m m * bucket_m."""
     n = check_bucket_inputs(xs, ys, digits, signed)
+    L = check_chunks(n, chunks)
     n_win, C, nb = WINDOWS[signed], chunks, BUCKETS[signed]
     device = xs.device
     X, Y = widen(xs), widen(ys)
@@ -117,8 +146,9 @@ def bucket_partials_plain(xs, ys, digits, signed: bool, chunks: int) -> JacPoint
     # (lanes, nb + 1, 16) per coordinate; slot 0 takes the zero digits
     B = [c.clone() for c in _wide_identity((n_win * C, nb + 1), device)]
     one = FQ.wide(device).one.expand(n_win * C, -1)
-    for start in range(0, n, C):
-        idx = torch.arange(start, start + C, device=device)
+    first = torch.arange(C, device=device) * L
+    for j in range(L):  # step j adds point c * L + j of every chunk c
+        idx = first + j
         valid = idx < n
         idx = idx.clamp(max=n - 1)
         e = torch.where(valid, digits[:, idx].to(torch.int64), 0).reshape(-1)
@@ -168,8 +198,9 @@ def msm(points: AffinePoint, scalars: torch.Tensor, *, signed: bool = True) -> J
     identity); compare as affine points.
 
     On a CUDA tensor this launches K7 (`signed=True`) or K9 (or raises),
-    with `choose_chunks` chunks; on a CPU tensor it runs their plain
-    version with `PLAIN_CHUNKS`."""
+    with `choose_chunks` chunks from the kernel's occupancy on the card; on
+    a CPU tensor it runs their plain version with `PLAIN_CHUNKS` (more where
+    n needs them to keep a chunk within 2^15 points)."""
     n = points.x.shape[0]
     if tuple(points.inf.shape) != (n,) or tuple(scalars.shape) != (n, NL):
         raise ValueError(f"inf {tuple(points.inf.shape)} / scalars {tuple(scalars.shape)} for {n} points")
@@ -180,8 +211,8 @@ def msm(points: AffinePoint, scalars: torch.Tensor, *, signed: bool = True) -> J
     scalars = torch.where(points.inf[:, None], 0, scalars)
     digits = signed_windows(scalars) if signed else unsigned_windows(scalars)
     if device.type == "cpu":
-        return msm_bucket_plain(points.x, points.y, digits, signed, PLAIN_CHUNKS)
+        return msm_bucket_plain(points.x, points.y, digits, signed, max(PLAIN_CHUNKS, -(-n // MAX_CHUNK_POINTS)))
     if device.type != "cuda":
         raise ValueError(f"msm: unsupported device {device}")
     launch = msm_kernels.msm_bucket_s5 if signed else msm_kernels.msm_bucket_u4
-    return launch(points.x, points.y, digits, choose_chunks(n, signed))
+    return launch(points.x, points.y, digits, choose_chunks(n, signed, *msm_kernels.occupancy(signed)))

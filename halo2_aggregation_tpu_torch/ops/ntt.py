@@ -32,9 +32,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from halo2_aggregation_tpu.fields import R, fr_omega
-from halo2_aggregation_tpu.plonk import engine
-
+from ..fields import R, fr_omega
+from ..plonk import engine
 from . import build
 from . import field_ops as fo
 from .limbs import NL, u64_to_port

@@ -17,8 +17,9 @@ from __future__ import annotations
 
 import torch
 
-from halo2_aggregation_tpu.fields import R
-from halo2_aggregation_tpu.plonk.protocol import (
+from ..fields import R
+from ..ops import build
+from .protocol import (
     LookupEvals,
     PermutationSetEvals,
     fold_y,
@@ -26,10 +27,8 @@ from halo2_aggregation_tpu.plonk.protocol import (
     lookup_expressions,
     permutation_expressions,
 )
-from halo2_aggregation_tpu.plonk.verifier import num_perm_chunks
-
-from ..ops import build
 from .protocol_ops import Tape, TapeOps, TorchLimbOps, run_tape
+from .verifier import num_perm_chunks
 
 
 def fa_schedule(vk):

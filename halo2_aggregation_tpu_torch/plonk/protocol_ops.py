@@ -21,10 +21,9 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
-from halo2_aggregation_tpu.fields import R
-from halo2_aggregation_tpu.plonk.protocol import IntOps, ScalarOps
-
+from ..fields import R
 from ..ops import field_ops as fo
+from .protocol import IntOps, ScalarOps
 
 OP_ADD, OP_SUB, OP_MUL, OP_NEG, OP_INV = range(5)  # csrc/fa_tape.cuh TapeOp
 _BINARY = (OP_ADD, OP_SUB, OP_MUL)

@@ -28,9 +28,13 @@ import time
 
 import numpy as np
 
-from halo2_aggregation_tpu.fields import FR_DELTA, FR_GENERATOR, R, fr_omega
-from halo2_aggregation_tpu.plonk.circuit import Any, Assignment
-from halo2_aggregation_tpu.plonk.engine import (
+from ..device import resolve_device
+from ..fields import FR_DELTA, FR_GENERATOR, R, fr_omega
+from ..utils import native
+from ..utils.transcript import Blake2bWrite
+from ..utils.u64 import ints_to_u64
+from .circuit import Any, Assignment
+from .engine import (
     Barycentric,
     NativeDomain,
     NativeVecOps,
@@ -43,21 +47,11 @@ from halo2_aggregation_tpu.plonk.engine import (
     scalar_to_int,
     to_mont,
 )
-from halo2_aggregation_tpu.plonk.keygen import ProvingKey
-from halo2_aggregation_tpu.plonk.kzg import Params
-from halo2_aggregation_tpu.plonk.protocol import (
-    compress_expressions,
-    query_schedule,
-    rotation_sets,
-)
-from halo2_aggregation_tpu.plonk.prover import _rand_fr
-from halo2_aggregation_tpu.plonk.prover_native import _as_plain_u64, _permute_lookup_u64
-from halo2_aggregation_tpu.utils import native
-from halo2_aggregation_tpu.utils.transcript import Blake2bWrite
-from halo2_aggregation_tpu.utils.u64 import ints_to_u64
-
-from ..device import resolve_device
-from .kzg import DeviceSRS
+from .keygen import ProvingKey
+from .kzg import DeviceSRS, Params
+from .protocol import compress_expressions, query_schedule, rotation_sets
+from .prover import _rand_fr
+from .prover_native import _as_plain_u64, _permute_lookup_u64
 from .quotient_device import DeviceQuotient
 
 
@@ -70,7 +64,7 @@ def create_proof_device(
     progress=None,
     transcript_cls=Blake2bWrite,
     *,
-    device,
+    device="cuda",
     srs=None,
 ) -> bytes:
     """A proof byte-identical to `create_proof_native`'s for the same

@@ -33,13 +33,12 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from halo2_aggregation_tpu.fields import R, fr_omega
-from halo2_aggregation_tpu.plonk.verifier import num_perm_chunks
-
 from ..device import resolve_device
+from ..fields import R, fr_omega
 from ..ops import ntt as nt
 from ..ops.limbs import NL, u64_to_port
 from .quotient_program import leaf_schedule, quotient_tape, quotient_tape_eval
+from .verifier import num_perm_chunks
 
 
 class DeviceQuotient:
@@ -47,7 +46,7 @@ class DeviceQuotient:
     `device`.  Feed every key of `key_order` with `feed_evals`, call
     `finalize`, then `run_coset` once per coset."""
 
-    def __init__(self, cs, k: int, device):
+    def __init__(self, cs, k: int, device="cuda"):
         self.cs = cs
         self.k = k
         self.n = 1 << k

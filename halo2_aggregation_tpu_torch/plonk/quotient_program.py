@@ -23,7 +23,9 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
-from halo2_aggregation_tpu.plonk.protocol import (
+from ..ops import build
+from ..ops.limbs import NL
+from .protocol import (
     LookupEvals,
     PermutationSetEvals,
     fold_y,
@@ -31,11 +33,8 @@ from halo2_aggregation_tpu.plonk.protocol import (
     lookup_expressions,
     permutation_expressions,
 )
-from halo2_aggregation_tpu.plonk.verifier import num_perm_chunks
-
-from ..ops import build
-from ..ops.limbs import NL
 from .protocol_ops import Tape, TapeOps, TorchLimbOps, run_tape
+from .verifier import num_perm_chunks
 
 UNIFORMS = ("theta", "beta", "gamma", "y", "vinv")
 QT_MAX_TEMPS = 64  # csrc/quotient_tape.cuh

@@ -3,7 +3,7 @@
 Counterpart of `halo2_aggregation_tpu/plonk/verifier_tpu.py`'s production
 path (`verify_batch(aggregate=True)` -> `verify_algebra_fast`):
 
-1. host: `parse_proof` replays each transcript (shared host module), then
+1. host: `parse_proof` replays each transcript (`plonk/verifier.py`), then
    `batch_proofs` and `fast_prep_gathered` build the batch;
 2. device: `fast_device_gathered` -> `fast_device`: the fused field algebra
    (kernel K2) gives h_eval, one batched scalar-mul runs over all
@@ -28,27 +28,20 @@ from typing import List
 import numpy as np
 import torch
 
-from halo2_aggregation_tpu.fields import G1_GEN, R
-from halo2_aggregation_tpu.plonk.keygen import VerifyingKey
-from halo2_aggregation_tpu.plonk.protocol import (
-    LookupEvals,
-    PermutationSetEvals,
-    query_schedule,
-    rotation_sets,
-)
-from halo2_aggregation_tpu.plonk.verifier import (
-    ParsedProof,
-    num_perm_chunks,
-    parse_proof,
-)
-
 from ..device import resolve_device
-from ..ops import curve_ops as co
-from ..ops import field_ops as fo
+from ..fields import G1_GEN, R
+from ..ops import curve_ops as co, field_ops as fo
 from ..ops.curve_ops import JacPoint
 from ..ops.ec_kernels import scalar_mul
 from ..ops.limbs import ints_to_np
+from ..oracle import curve as oc
+from ..oracle.pairing import multi_pairing_check_fast
+from ..utils import native
+from ..utils.serialization import g1_compress
 from .fa_fused import field_algebra_fused
+from .keygen import VerifyingKey
+from .protocol import LookupEvals, PermutationSetEvals, query_schedule, rotation_sets
+from .verifier import ParsedProof, num_perm_chunks, parse_proof
 
 FR = fo.FR
 QUAD_NAMES = ("e", "f", "w", "zw")
@@ -366,8 +359,6 @@ def synthetic_batch(vk: VerifyingKey, B: int, device, seed: int = 0) -> Verifier
     """A structurally-correct VerifierBatch with random field and point
     values; the same numpy draws in the same order as the JAX
     `synthetic_batch`, so one seed gives the same batch in both."""
-    from halo2_aggregation_tpu.oracle import curve as oc
-
     device = resolve_device(device)
     rng = np.random.default_rng(seed)
     cs = vk.cs
@@ -429,10 +420,6 @@ def aggregate_quads(quads, g1, s_g2, g2):
     Returns ((W, RHS), lambda)."""
     import hashlib
 
-    from halo2_aggregation_tpu.oracle import curve as oc
-    from halo2_aggregation_tpu.utils import native
-    from halo2_aggregation_tpu.utils.serialization import g1_compress
-
     h = hashlib.blake2b(digest_size=64, person=b"H2A-Aggregate---")
     for e, f, w, zw in quads:
         for p in (e, f, w, zw):
@@ -464,9 +451,6 @@ def aggregate_quads(quads, g1, s_g2, g2):
 
 def check_aggregate(quads, params) -> bool:
     """One pairing for the whole batch (vs one per proof)."""
-    from halo2_aggregation_tpu.oracle import curve as oc
-    from halo2_aggregation_tpu.oracle.pairing import multi_pairing_check_fast
-
     (W, RHS), _ = aggregate_quads(quads, params.g1, params.s_g2, params.g2)
     return multi_pairing_check_fast([(W, params.s_g2), (oc.g1_neg(RHS), params.g2)])
 
@@ -477,7 +461,7 @@ def verify_batch(
     instances_list,
     proofs: List[bytes],
     *,
-    device,
+    device="cuda",
     aggregate: bool = True,
     timings: dict | None = None,
     method: str = "win",
@@ -489,9 +473,6 @@ def verify_batch(
     (ok: bool, quads); otherwise ([ok per proof], quads).  `timings`, if
     given, receives the stage split in seconds: parse, prep, device (up to
     the quads on the host) and pairing."""
-    from halo2_aggregation_tpu.oracle import curve as oc
-    from halo2_aggregation_tpu.oracle.pairing import multi_pairing_check_fast
-
     device = resolve_device(device)
     t0 = time.perf_counter()
     parsed = []

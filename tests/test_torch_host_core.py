@@ -1,7 +1,7 @@
 """The kernels' arithmetic on the host: g++ builds `csrc/field.cuh`,
 `curve.cuh` (with the mixed add), K1's and K8's lane functions, the tape
 interpreter of K2 and K6, the NTT butterflies, stage index maps and
-power-series element of K3-K5 (`ntt.cuh`), and the per-thread bucket pass,
+power-series element of K3-K5 (`ntt.cuh`), and the per-thread sort, walk,
 fold and Horner of K7 and K9 (`msm.cuh`) through `csrc/host_shim.cpp`, and
 each is checked against its plain PyTorch version, exactly (points as
 affine points)."""
@@ -88,13 +88,14 @@ def test_tape_interpreter(lib):
     from halo2_aggregation_tpu.models import simple_example as se
     from halo2_aggregation_tpu.plonk import kzg
     from halo2_aggregation_tpu.plonk.keygen import keygen
+    from halo2_aggregation_tpu_torch.convert import keys_from_reference
     from halo2_aggregation_tpu_torch.plonk import fa_fused as ff
     from halo2_aggregation_tpu_torch.plonk.verifier_device import synthetic_batch
 
     params = kzg.setup(9)
     circuit = se.MyCircuit(constant=7, a=2, b=3)
     cs_e, _, asg_e = se.build(circuit.without_witnesses(), k=9)
-    vk, _ = keygen(params, cs_e, asg_e)
+    vk = keys_from_reference(keygen(params, cs_e, asg_e)[0])
     lanes = 2
     batch = synthetic_batch(vk, lanes, "cpu", seed=11)
     tape = ff.fa_tape(vk)
@@ -158,11 +159,12 @@ def test_quotient_lane(lib):
     """K6's lane on rows 0, 1, n-1 and a middle row of the simple
     example's quotient tape, against the plain tape."""
     from halo2_aggregation_tpu.models import simple_example as se
+    from halo2_aggregation_tpu_torch.convert import constraint_system_from_reference
     from halo2_aggregation_tpu_torch.ops.ntt import mont_tensor
     from halo2_aggregation_tpu_torch.plonk import quotient_program as qp
 
     cs, _, _ = se.build(se.MyCircuit(constant=7, a=2, b=3).without_witnesses(), k=9)
-    qt = qp.quotient_tape(cs)
+    qt = qp.quotient_tape(constraint_system_from_reference(cs))
     n = 1 << 6
     C = int(qt.sources[:, 0].max()) + 1
     stack, x = _rand_stack(RNG, C, n), _rand_stack(RNG, 1, n)[0]
@@ -211,33 +213,53 @@ def test_ladder_lane(lib, nbits):
     assert got == [oc.g1_mul(p, k) if p else None for p, k in zip(pts, ks)]
 
 
-@pytest.mark.parametrize("signed", [True, False], ids=["k7_signed", "k9_unsigned"])
-def test_msm_bucket_pass_fold_and_horner(lib, signed):
-    """K7's / K9's per-thread bucket pass and fold for every (window, chunk)
-    at 3 chunks over 40 points (a ragged last chunk), against the plain
-    version's at the same chunking; then the Horner over the plain window
-    sums.  The lanes meet the identity and doubling branches of the adds in
-    one chunk, and hold an infinity point with its scalar zeroed, as `msm`
-    zeroes it."""
-    from halo2_aggregation_tpu_torch.ops import msm as m
-
-    n, C = 40, 3
+def _msm_lanes(n, zero_rows=()):
+    """n points and scalars for K7's / K9's per-thread code: adjacent rows
+    0..3 share a chunk and one scalar: P, -P (the identity branch: sorted by
+    digit they meet back to back), P into the emptied bucket sum, P again
+    (the doubling branch); an infinity point with its scalar zeroed, as
+    `msm` zeroes it; r - 1; and zero scalars on `zero_rows`."""
     pts = _rand_points(n)
     ks = [int.from_bytes(RNG.bytes(32), "little") % R for _ in range(n)]
-    # rows C apart share a chunk, with one scalar: P, -P (the identity
-    # branch), P into the emptied bucket, P again (the doubling branch)
-    for i, p in ((3, oc.g1_neg(pts[0])), (6, pts[0]), (9, pts[0])):
+    for i, p in ((1, oc.g1_neg(pts[0])), (2, pts[0]), (3, pts[0])):
         pts[i], ks[i] = p, ks[0]
     pts[4], ks[4] = None, 0
     ks[5] = R - 1
+    for i in zero_rows:
+        ks[i] = 0
+    return pts, ks
+
+
+def _host_partials(lib, signed, A, digits, n, C):
+    from halo2_aggregation_tpu_torch.ops import msm as m
+
+    n_win = digits.shape[0]
+    order = torch.zeros((n_win, n), dtype=torch.int16)
+    bsums = torch.zeros((n_win, C, m.BUCKETS[signed], 3, 8), dtype=torch.int32)
+    parts = torch.empty((n_win, C, 3, 8), dtype=torch.int32)
+    lib.h2a_host_msm_partials(
+        int(signed), _ptr(A.x), _ptr(A.y), _ptr(digits), n, C,
+        _ptr(order), _ptr(bsums), _ptr(parts),
+    )
+    return co.jac_to_ints(co.JacPoint(*(parts[:, :, i].reshape(-1, 8) for i in range(3))))
+
+
+@pytest.mark.parametrize("signed", [True, False], ids=["k7_signed", "k9_unsigned"])
+def test_msm_bucket_pass_fold_and_horner(lib, signed):
+    """K7's / K9's per-thread sort, walk and fold for every (window, chunk)
+    at 3 contiguous chunks over 40 points (a ragged last chunk of 12),
+    against the plain version's at the same chunking; then the Horner over
+    the plain window sums.  The lanes meet the identity and doubling
+    branches of the adds on adjacent rows of one chunk."""
+    from halo2_aggregation_tpu_torch.ops import msm as m
+
+    n, C = 40, 3
+    pts, ks = _msm_lanes(n)
     A = co.affine_from_ints(pts, "cpu")
     s = ints_to_tensor(ks, "cpu")
     digits = (m.signed_windows(s) if signed else m.unsigned_windows(s)).contiguous()
-    n_win = digits.shape[0]
-    parts = torch.empty((n_win, C, 3, 8), dtype=torch.int32)
-    lib.h2a_host_msm_partials(int(signed), _ptr(A.x), _ptr(A.y), _ptr(digits), n, C, _ptr(parts))
     want = m.bucket_partials_plain(A.x, A.y, digits, signed, C)
-    assert co.jac_to_ints(co.JacPoint(*(parts[:, :, i].reshape(-1, 8) for i in range(3)))) == co.jac_to_ints(
+    assert _host_partials(lib, signed, A, digits, n, C) == co.jac_to_ints(
         co.JacPoint(*(c.reshape(-1, 8) for c in want))
     )
     wsum = co.jac_sum(co.JacPoint(*(c.transpose(0, 1) for c in want)))
@@ -247,3 +269,61 @@ def test_msm_bucket_pass_fold_and_horner(lib, signed):
     got = co.jac_to_ints(co.JacPoint(out[0:1], out[1:2], out[2:3]))[0]
     assert got == co.jac_to_ints(co.JacPoint(*(c[None] for c in m.combine_plain(want, signed))))[0]
     assert got == oc.g1_msm(pts, ks)
+
+
+@pytest.mark.parametrize("case", ["ragged_last_chunk", "all_zero_chunk", "empty_buckets", "one_chunk", "chunk_of_one"])
+@pytest.mark.parametrize("signed", [True, False], ids=["k7_signed", "k9_unsigned"])
+def test_msm_chunk_cases(lib, signed, case):
+    """`msm.cuh::msm_chunk` (sort, walk, fold) against the plain version, chunk
+    by chunk, where trouble is likely: a ragged last chunk, a chunk whose
+    every digit is zero, chunks so short that most buckets stay empty, one
+    chunk for all points, and chunks of a single point."""
+    from halo2_aggregation_tpu_torch.ops import msm as m
+
+    n, C, zero_rows = {
+        "ragged_last_chunk": (29, 4, ()),       # L = 8: chunks of 8, 8, 8, 5
+        "all_zero_chunk": (32, 4, range(8, 16)),
+        "empty_buckets": (24, 6, ()),           # 4 points a chunk, 15 or 16 buckets
+        "one_chunk": (24, 1, ()),
+        "chunk_of_one": (8, 8, ()),
+    }[case]
+    pts, ks = _msm_lanes(n, zero_rows)
+    A = co.affine_from_ints(pts, "cpu")
+    s = ints_to_tensor(ks, "cpu")
+    digits = (m.signed_windows(s) if signed else m.unsigned_windows(s)).contiguous()
+    want = m.bucket_partials_plain(A.x, A.y, digits, signed, C)
+    got = _host_partials(lib, signed, A, digits, n, C)
+    assert got == co.jac_to_ints(co.JacPoint(*(c.reshape(-1, 8) for c in want)))
+    if case == "all_zero_chunk":
+        n_win = digits.shape[0]
+        assert all(got[w * C + 1] is None for w in range(n_win))
+
+
+@pytest.mark.parametrize("signed", [True, False], ids=["k7_signed", "k9_unsigned"])
+def test_msm_sort_matches_numpy_argsort(lib, signed):
+    """The counting sort of every chunk of one window's digits (`order` and
+    the buckets' ends) against a stable numpy argsort by magnitude; the
+    sign rides in bit 15.  5 chunks over 203 random digits: a ragged last
+    chunk of 39."""
+    n, C = 203, 5
+    L = -(-n // C)
+    nb = 16 if signed else 15
+    mag = RNG.integers(0, nb + 1, size=n).astype(np.uint8)
+    mag[41 : 41 + L // 2] = 0
+    neg = RNG.integers(0, 2, size=n).astype(np.uint8) if signed else np.zeros(n, np.uint8)
+    dig = torch.from_numpy((mag | (neg << 5)).astype(np.uint8))
+    for c in range(C):
+        lo, hi = c * L, min(n, (c + 1) * L)
+        order = torch.zeros(L, dtype=torch.int16)
+        ends = torch.zeros(nb + 1, dtype=torch.int32)
+        total = lib.h2a_host_msm_sort(int(signed), _ptr(dig), n, c, C, _ptr(order), _ptr(ends))
+        m_c, neg_c = mag[lo:hi], neg[lo:hi]
+        idx = np.argsort(m_c, kind="stable")
+        idx = idx[m_c[idx] > 0]
+        assert total == len(idx)
+        got = order.numpy().view(np.uint16)[:total]
+        assert np.array_equal(got & 0x7FFF, idx)
+        assert np.array_equal(got >> 15, neg_c[idx])
+        assert np.array_equal(ends.numpy(), np.cumsum(np.bincount(m_c, minlength=nb + 1) * (np.arange(nb + 1) > 0)))
+    # 4 chunks of 3 over 9 digits: the fourth starts past the end, nothing to sort
+    assert lib.h2a_host_msm_sort(int(signed), _ptr(dig), 9, 3, 4, _ptr(order), _ptr(ends)) == 0

@@ -1,4 +1,5 @@
-"""The port's boundaries: no JAX anywhere in the package, no CPU fallback
+"""The port's boundaries: no JAX and nothing of the JAX package anywhere in
+the port, no CPU fallback
 for a CUDA request, no fallback when the kernels cannot be built."""
 
 import os
@@ -21,7 +22,15 @@ PKG = ROOT / "halo2_aggregation_tpu_torch"
 
 
 def test_package_never_imports_jax():
-    pattern = re.compile(r"^\s*(import\s+jax\b|from\s+jax\b)", re.M)
+    """No file of the port, and not `chip_smoke.py`, imports jax or the JAX
+    package (`convert.py` included: it takes that package's objects by
+    attribute)."""
+    pattern = re.compile(
+        r"^\s*(import\s+jax\b|from\s+jax\b"
+        r"|(import|from)\s+halo2_aggregation_tpu(?!_torch)\b"
+        r"|.*(import_module|__import__)\(\s*[\"']halo2_aggregation_tpu(?!_torch))",
+        re.M,
+    )
     offenders = [
         str(f.relative_to(ROOT))
         for f in sorted(PKG.rglob("*.py"))
@@ -29,22 +38,33 @@ def test_package_never_imports_jax():
     ]
     assert offenders == []
     assert not pattern.search((ROOT / "chip_smoke.py").read_text())
+    assert pattern.search("    from halo2_aggregation_tpu.fields import R")
+    assert pattern.search("import halo2_aggregation_tpu")
+    assert not pattern.search("from halo2_aggregation_tpu_torch.fields import R")
+
+
+POISON = """
+import sys
+sys.modules["jax"] = None
+sys.modules["halo2_aggregation_tpu"] = None
+"""
+NOTHING_LOADED = """
+assert not {m.split(".")[0] for m, v in sys.modules.items() if v is not None} & {"jax", "jaxlib", "halo2_aggregation_tpu"}
+"""
 
 
 def test_slice_runs_with_jax_unimportable():
-    """The card's machine has no JAX: with `sys.modules["jax"] = None`,
-    import the port, run the B = 2 main path and prove with
-    `create_proof_device` on CPU tensors (bytes equal to the JAX package's
-    host `create_proof_native`, which then runs its host coset loop)."""
-    script = textwrap.dedent(
+    """The port stands alone: with `jax` and the JAX package both made
+    unimportable, run the B = 2 main path and prove at k = 9 with
+    `create_proof_device` on CPU tensors, bytes equal to the port's own host
+    provers `create_proof_native` and `create_proof`."""
+    script = POISON + textwrap.dedent(
         """
-        import sys
-        sys.modules["jax"] = None
-        from halo2_aggregation_tpu.models import simple_example as se
-        from halo2_aggregation_tpu.plonk import kzg
-        from halo2_aggregation_tpu.plonk.keygen import keygen
-        from halo2_aggregation_tpu.plonk.prover import create_proof
-        from halo2_aggregation_tpu.plonk.verifier import verify_proof
+        from halo2_aggregation_tpu_torch.models import simple_example as se
+        from halo2_aggregation_tpu_torch.plonk import kzg
+        from halo2_aggregation_tpu_torch.plonk.keygen import keygen
+        from halo2_aggregation_tpu_torch.plonk.prover import create_proof
+        from halo2_aggregation_tpu_torch.plonk.verifier import verify_proof
         from halo2_aggregation_tpu_torch.plonk.verifier_device import verify_batch
         params = kzg.setup(9)
         c0 = se.MyCircuit(constant=7, a=2, b=3)
@@ -56,42 +76,38 @@ def test_slice_runs_with_jax_unimportable():
         ok, efws = verify_batch(params, vk, [[pub]] * 2, [proof] * 2, device="cpu")
         ok_h, efw = verify_proof(params, vk, [pub], proof)
         assert ok is True and ok_h and efws == [tuple(efw)] * 2
-        from halo2_aggregation_tpu.plonk.prover_native import create_proof_native
+        from halo2_aggregation_tpu_torch.plonk.prover_native import create_proof_native
         from halo2_aggregation_tpu_torch.plonk.prover_device import create_proof_device
         _, _, asg = se.build(c0, k=9)
         dev = create_proof_device(params, pk, asg, [pub], seed=7, device="cpu")
         _, _, asg = se.build(c0, k=9)
         assert dev == create_proof_native(params, pk, asg, [pub], seed=7) == proof
-        assert "jax" not in {m.split(".")[0] for m, v in sys.modules.items() if v is not None}
-        print("NOJAX_OK")
         """
-    )
+    ) + NOTHING_LOADED + 'print("ALONE_OK")\n'
     env = dict(os.environ, PYTHONPATH=str(ROOT), OMP_NUM_THREADS="1")
     res = subprocess.run(
         [sys.executable, "-c", script], cwd=ROOT, env=env,
         capture_output=True, text=True, timeout=300,
     )
     assert res.returncode == 0, res.stderr[-3000:]
-    assert "NOJAX_OK" in res.stdout
+    assert "ALONE_OK" in res.stdout
 
 
 def test_every_module_imports_without_jax():
-    """Each module of the package (the MSM's `ops/msm`, `ops/msm_kernels`,
-    `plonk/kzg` and `plonk/keygen_device` among them) and `chip_smoke.py`
-    import with `import jax` made to fail."""
-    script = textwrap.dedent(
+    """Each module of the package (the host copies, the MSM's `ops/msm`,
+    `ops/msm_kernels`, `plonk/kzg` and `plonk/keygen_device` among them) and
+    `chip_smoke.py` import with `jax` and the JAX package made
+    unimportable."""
+    script = POISON + textwrap.dedent(
         """
-        import importlib, pkgutil, sys
-        sys.modules["jax"] = None
+        import importlib, pkgutil
         import halo2_aggregation_tpu_torch as pkg
         names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
         for name in names:
             importlib.import_module(name)
         import chip_smoke
-        assert "jax" not in {m.split(".")[0] for m, v in sys.modules.items() if v is not None}
-        print("IMPORTED", len(names), " ".join(sorted(names)))
         """
-    )
+    ) + NOTHING_LOADED + 'print("IMPORTED", len(names), " ".join(sorted(names)))\n'
     env = dict(os.environ, PYTHONPATH=str(ROOT), OMP_NUM_THREADS="1")
     res = subprocess.run(
         [sys.executable, "-c", script], cwd=ROOT, env=env,
@@ -99,7 +115,9 @@ def test_every_module_imports_without_jax():
     )
     assert res.returncode == 0, res.stderr[-3000:]
     imported = res.stdout.split()
-    for name in ("ops.msm", "ops.msm_kernels", "plonk.kzg", "plonk.keygen_device", "ops.ec_kernels"):
+    for name in ("ops.msm", "ops.msm_kernels", "plonk.kzg", "plonk.keygen_device", "ops.ec_kernels",
+                 "fields", "utils.native", "oracle.pairing", "plonk.prover_native", "aggregation.chips",
+                 "models.aggregation_circuit", "convert"):
         assert "halo2_aggregation_tpu_torch." + name in imported
 
 
@@ -112,6 +130,28 @@ def test_cuda_request_raises_without_a_card():
 
     with pytest.raises(RuntimeError, match="cuda"):
         verify_batch(None, None, [], [], device="cuda")
+    with pytest.raises(RuntimeError, match="cuda"):
+        verify_batch(None, None, [], [])  # the default device is the card
+
+
+@pytest.mark.parametrize(
+    "module, name",
+    [
+        ("plonk.verifier_device", "verify_batch"),
+        ("plonk.prover_device", "create_proof_device"),
+        ("plonk.keygen_device", "keygen_device"),
+        ("plonk.kzg", "DeviceSRS"),
+        ("plonk.quotient_device", "DeviceQuotient"),
+    ],
+)
+def test_entry_points_default_to_the_card(module, name):
+    """Every entry point runs on the card unless the caller asks for the
+    CPU: `device` defaults to "cuda" (which raises where no card is)."""
+    import importlib
+    import inspect
+
+    fn = getattr(importlib.import_module("halo2_aggregation_tpu_torch." + module), name)
+    assert inspect.signature(fn).parameters["device"].default == "cuda"
 
 
 def test_build_raises_without_nvcc(tmp_path, monkeypatch):

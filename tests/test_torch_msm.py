@@ -25,6 +25,7 @@ from halo2_aggregation_tpu.plonk import kzg
 from halo2_aggregation_tpu.utils import native
 from halo2_aggregation_tpu.utils.u64 import ints_to_u64, u64_to_points
 from halo2_aggregation_tpu_torch import convert
+from halo2_aggregation_tpu_torch.convert import params_from_reference
 from halo2_aggregation_tpu_torch.ops import curve_ops as co
 from halo2_aggregation_tpu_torch.ops import msm as m
 from halo2_aggregation_tpu_torch.ops import msm_kernels as mk
@@ -52,12 +53,12 @@ def _affine(p: co.JacPoint):
     return co.jac_to_ints(co.JacPoint(*(c.reshape(-1, 8) for c in p)))
 
 
-def _edge_lanes(n, chunks=m.PLAIN_CHUNKS):
+def _edge_lanes(n):
     """n points and scalars with, mixed in: an infinity point, zero scalars,
-    the scalars 1, r - 1 and 2^254 - 1 mod r, and, in one chunk (rows
-    `chunks` apart), with one scalar: a point P, then -P (the identity
-    branch), then P into that emptied bucket, then P again (equal digits:
-    the doubling branch)."""
+    the scalars 1, r - 1 and 2^254 - 1 mod r, and, on adjacent rows 6..9
+    (one contiguous chunk at the chunkings used here), with one scalar: a
+    point P, then -P (the identity branch), then P into that emptied
+    bucket, then P again (equal digits: the doubling branch)."""
     pts = _rand_points(n)
     ks = _rand_scalars(n)
     ks[: len(EDGE_SCALARS)] = EDGE_SCALARS
@@ -65,7 +66,7 @@ def _edge_lanes(n, chunks=m.PLAIN_CHUNKS):
     ks[5] = 0
     r = 6
     for j, p in enumerate((oc.g1_neg(pts[r]), pts[r], pts[r]), 1):
-        pts[r + j * chunks], ks[r + j * chunks] = p, ks[r]
+        pts[r + j], ks[r + j] = p, ks[r]
     return pts, ks
 
 
@@ -189,10 +190,10 @@ def test_plain_msm_matches_native_at_2_10(signed):
     assert got == native.g1_msm(pts, ks)
 
 
-@pytest.mark.parametrize("chunks", [1, 5])
+@pytest.mark.parametrize("chunks", [1, 5, 24])
 def test_plain_msm_same_at_any_chunking(lanes24, chunks):
     """The chunk count changes the order of the adds, not the sum; 5 chunks
-    leave a ragged last chunk."""
+    of 5 leave a ragged last chunk of 4, 24 are chunks of one point."""
     pts, ks, got, _, _ = lanes24
     A = co.affine_from_ints(pts, "cpu")
     s = torch.where(A.inf[:, None], 0, ints_to_tensor(ks, "cpu"))
@@ -200,15 +201,71 @@ def test_plain_msm_same_at_any_chunking(lanes24, chunks):
     assert _affine(out)[0] == got[True]
 
 
+@pytest.mark.parametrize("signed", [True, False], ids=["k7_signed", "k9_unsigned"])
+def test_plain_partials_take_contiguous_chunks(signed):
+    """Chunk c of the plain bucket pass holds the points [c L, (c + 1) L):
+    its fold in window w equals the oracle's sum of d_i P_i over those rows,
+    with d_i the window's digit; a chunk of zero scalars folds to the
+    identity, and the ragged last chunk stops at n."""
+    n, C = 22, 4  # L = 6: chunks of 6, 6, 6, 4
+    pts, ks = _edge_lanes(n)
+    for i in range(12, 18):  # chunk 2: every digit zero
+        ks[i] = 0
+    A = co.affine_from_ints(pts, "cpu")
+    s = torch.where(A.inf[:, None], 0, ints_to_tensor(ks, "cpu"))
+    digits = m.signed_windows(s) if signed else m.unsigned_windows(s)
+    parts = m.bucket_partials_plain(A.x, A.y, digits, signed, C)
+    got = _affine(parts)
+    L = mk.chunk_len(n, C)
+    assert L == 6
+    dn = digits.numpy().astype(np.int64)
+    d = np.where(dn >> 5 == 1, -(dn & 31), dn & 31) if signed else dn
+    for w in (0, 1, 7, mk.WINDOWS[signed] - 1):
+        for c in range(C):
+            rows = range(c * L, min(n, (c + 1) * L))
+            want = oc.g1_msm([pts[i] for i in rows], [int(d[w, i]) % R for i in rows])
+            assert got[w * C + c] == want, (w, c)
+        assert got[w * C + 2] is None
+
+
+def test_chunk_longer_than_the_sort_offsets_raises():
+    """A chunk holds at most 2^15 points (15-bit offsets in the sort's
+    scratch): fewer chunks than that allows raise, in the plain version as
+    in the launcher's check."""
+    n = (1 << 15) + 1
+    x = torch.zeros((n, 8), dtype=torch.int32)
+    digits = torch.zeros((52, n), dtype=torch.uint8)
+    with pytest.raises(ValueError, match="at most 32768"):
+        m.msm_bucket_plain(x, x, digits, True, 1)
+    with pytest.raises(ValueError, match="at most 32768"):
+        mk.check_chunks(1 << 21, 63)
+    assert mk.check_chunks(1 << 21, 64) == 1 << 15
+    with pytest.raises(ValueError, match="chunks"):
+        mk.check_chunks(8, 0)
+
+
 def test_choose_chunks():
-    """n = 2^21 fills the card's target exactly; smaller n keep 64 points a
-    chunk."""
+    """The grid fills whole waves of the kernel's occupancy: at n = 2^21,
+    with 4 or 3 blocks of 128 threads on each of 132 SMs, n_win x C / 128
+    blocks come to `WAVES` whole waves less a remainder below n_win; smaller n keep 128
+    points a chunk, larger n at most 2^15."""
     for signed, n_win in ((True, 52), (False, 64)):
-        assert m.choose_chunks(1, signed) == 1
-        assert m.choose_chunks(1 << 9, signed) == 8
-        assert m.choose_chunks(1 << 16, signed) == 1024
-        c = m.choose_chunks(1 << 21, signed)
-        assert m.TARGET_THREADS <= n_win * c < m.TARGET_THREADS + n_win
+        assert m.choose_chunks(1, signed, 4, 132) == 1
+        assert m.choose_chunks(1 << 9, signed, 4, 132) == 4
+        assert m.choose_chunks(1 << 16, signed, 4, 132) == 512
+        for blocks_per_sm in (4, 3):
+            c = m.choose_chunks(1 << 21, signed, blocks_per_sm, 132)
+            slots = blocks_per_sm * 132 * m.WAVES
+            assert c % 128 == 0 and slots - n_win < n_win * c // 128 <= slots
+            shape = m.grid_shape(1 << 21, signed, blocks_per_sm, 132)
+            assert shape["chunks"] == c and m.WAVES - 0.13 < shape["waves"] <= m.WAVES
+            assert shape["points_a_chunk"] == -(-(1 << 21) // c)
+        assert mk.chunk_len(1 << 27, m.choose_chunks(1 << 27, signed, 4, 132)) == 1 << 15
+    assert m.WAVES == 2
+    assert m.choose_chunks(1 << 21, True, 4, 132) == 2560
+    assert m.choose_chunks(1 << 21, False, 4, 132) == 2048
+    assert m.choose_chunks(1 << 21, True, 3, 132) == 1920
+    assert m.choose_chunks(1 << 21, False, 3, 132) == 1536
 
 
 # --- DeviceSRS and the JAX resident SRS ---------------------------------
@@ -219,7 +276,7 @@ K_SRS = 5
 @pytest.fixture(scope="module")
 def srs_cpu():
     params = kzg.setup(K_SRS)
-    return params, DeviceSRS(params, "cpu")
+    return params, DeviceSRS(params_from_reference(params), "cpu")
 
 
 @pytest.mark.parametrize("form", ["u64", "short_u64", "ints"])

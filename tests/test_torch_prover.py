@@ -13,6 +13,7 @@ from halo2_aggregation_tpu.plonk.keygen import keygen, keygen_native
 from halo2_aggregation_tpu.plonk.prover import create_proof
 from halo2_aggregation_tpu.plonk.prover_native import create_proof_native
 from halo2_aggregation_tpu.plonk.verifier import verify_proof
+from halo2_aggregation_tpu_torch import convert
 from halo2_aggregation_tpu_torch.ops import msm_kernels as mk
 from halo2_aggregation_tpu_torch.ops import ntt as nt
 from halo2_aggregation_tpu_torch.plonk import quotient_program as qp
@@ -39,13 +40,25 @@ def fresh_assignment(circuit):
     return asg
 
 
+def ported(params, key=None, assignment=None):
+    """The JAX package's state as the port's own classes: both packages
+    then compute on the same SRS, keys and witness."""
+    out = [convert.params_from_reference(params)]
+    if key is not None:
+        out.append(convert.keys_from_reference(key))
+    if assignment is not None:
+        out.append(convert.assignment_from_reference(assignment))
+    return out
+
+
 def test_create_proof_device_matches_native_and_spec(setup):
     params, vk, pk, circuit = setup
     pub = [circuit.public_output()]
     fns = (nt.ntt_batched, nt.intt_batched, nt.ew_mul_col, nt.ew_mul_scalar, nt.pow_series, qp.quotient_tape_eval,
            mk.msm_bucket_s5, mk.msm_bucket_u4)
     stages = []
-    got = create_proof_device(params, pk, fresh_assignment(circuit), [pub], seed=42, progress=stages.append, device="cpu")
+    got = create_proof_device(*ported(params, pk, fresh_assignment(circuit)), [pub], seed=42, progress=stages.append,
+                              device="cpu")
     assert [f.launches for f in fns] == [0] * len(fns)  # CPU tensors never launch a kernel
     assert sum("(device)" in s for s in stages) == 4  # four cosets, all on the engine
     native = create_proof_native(params, pk, fresh_assignment(circuit), [pub], seed=42)
@@ -62,9 +75,10 @@ def test_keygen_device_matches_native(setup):
     columns equal keygen_native's, so the vk hashes alike."""
     params, _, _, circuit = setup
     cs_e, _, asg_e = se.build(circuit.without_witnesses(), k=K)
-    srs = DeviceSRS(params, "cpu")
+    params_p, asg_p = ported(params, assignment=asg_e)
+    srs = DeviceSRS(params_p, "cpu")
     before = mk.msm_bucket_s5.launches
-    vk, pk = keygen_device(params, cs_e, asg_e, device="cpu", srs=srs)
+    vk, pk = keygen_device(params_p, asg_p.cs, asg_p, device="cpu", srs=srs)
     assert mk.msm_bucket_s5.launches == before
     vk_n, pk_n = keygen_native(params, cs_e, asg_e)
     assert vk.fixed_commitments == vk_n.fixed_commitments
@@ -73,7 +87,7 @@ def test_keygen_device_matches_native(setup):
     for a, b in zip(pk.fixed_columns + pk.sigma_columns, pk_n.fixed_columns + pk_n.sigma_columns):
         assert (a == b).all()
     with pytest.raises(ValueError, match="srs"):
-        keygen_device(params, cs_e, asg_e, device="cpu", srs=DeviceSRS(kzg.setup(K - 1), "cpu"))
+        keygen_device(params_p, asg_p.cs, asg_p, device="cpu", srs=DeviceSRS(ported(kzg.setup(K - 1))[0], "cpu"))
 
 
 def test_create_proof_device_raises_without_a_card(setup):
@@ -81,4 +95,4 @@ def test_create_proof_device_raises_without_a_card(setup):
         pytest.skip("a CUDA device is visible: the no-card path does not apply")
     params, _, pk, circuit = setup
     with pytest.raises(RuntimeError, match="cuda"):
-        create_proof_device(params, pk, fresh_assignment(circuit), [[circuit.public_output()]], device="cuda")
+        create_proof_device(*ported(params, pk, fresh_assignment(circuit)), [[circuit.public_output()]], device="cuda")

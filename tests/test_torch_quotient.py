@@ -45,6 +45,11 @@ def aggregation_cs():
     return cs
 
 
+def ported(cs):
+    """The JAX package's constraint system as the port's own classes."""
+    return convert.constraint_system_from_reference(cs)
+
+
 def shifts(k, cs):
     """The four coset shifts of `create_proof_native` (`:451-468`)."""
     ext_k = k + max(1, (cs.degree() - 2).bit_length())
@@ -71,9 +76,9 @@ def counters():
 def test_leaf_schedule_matches_jax(which):
     cs = simple_cs() if which == "simple" else aggregation_cs()
     bf, chunks = cs.blinding_factors(), num_perm_chunks(cs)
-    assert qp.leaf_schedule(cs, bf, chunks) == jqd.leaf_schedule(cs, bf, chunks)
-    tape = qp.quotient_tape(cs)
-    sched, keys = qp.leaf_schedule(cs, bf, chunks)
+    assert qp.leaf_schedule(ported(cs), bf, chunks) == jqd.leaf_schedule(cs, bf, chunks)
+    tape = qp.quotient_tape(ported(cs))
+    sched, keys = qp.leaf_schedule(ported(cs), bf, chunks)
     assert tape.tape.n_inputs == len(sched) + 1 + len(qp.UNIFORMS)
     assert sorted({rot for _, rot in sched}) == [-(bf + 1), -1, 0, 1]
     if which == "aggregation":
@@ -104,7 +109,7 @@ def jax_engine():
 def test_run_coset_matches_jax_engine(jax_engine, start):
     cs, dq_jax, evals, want = jax_engine
     before = counters()
-    dq = DeviceQuotient(cs, K_SIMPLE, "cpu")
+    dq = DeviceQuotient(ported(cs), K_SIMPLE, "cpu")
     assert dq.key_order == dq_jax.key_order and dq.schedule == dq_jax.schedule
     if start == "fed_evaluations":
         for key in dq.key_order:
@@ -167,7 +172,7 @@ def test_aggregation_circuit_matches_host_coset_loop():
     cs = aggregation_cs()
     k = 8
     n = 1 << k
-    dq = DeviceQuotient(cs, k, "cpu")
+    dq = DeviceQuotient(ported(cs), k, "cpu")
     evals = rand_evals(np.random.default_rng(8), dq.key_order, n)
     for key in dq.key_order:
         dq.feed_evals(key, evals[key])
@@ -184,7 +189,7 @@ def test_plain_tape_on_row_windows():
     cs = simple_cs()
     k = 6
     n = 1 << k
-    qt = qp.quotient_tape(cs)
+    qt = qp.quotient_tape(ported(cs))
     C = int(qt.sources[:, 0].max()) + 1
     rng = np.random.default_rng(6)
     stack = torch.from_numpy(np.stack(list(rand_evals(rng, range(C), n).values())).view(np.int32).reshape(C, n, 8).copy())
@@ -200,7 +205,7 @@ def test_plain_tape_on_row_windows():
 
 def test_engine_contract():
     cs = simple_cs()
-    dq = DeviceQuotient(cs, 5, "cpu")
+    dq = DeviceQuotient(ported(cs), 5, "cpu")
     col = np.zeros((32, 4), np.uint64)
     with pytest.raises(KeyError):
         dq.feed_evals(("vanishing_r", 0), col)
@@ -224,4 +229,4 @@ def test_cuda_engine_raises_without_a_card():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is visible: the no-card path does not apply")
     with pytest.raises(RuntimeError, match="cuda"):
-        DeviceQuotient(simple_cs(), 5, "cuda")
+        DeviceQuotient(ported(simple_cs()), 5, "cuda")
