@@ -30,9 +30,13 @@ nonzero before the last line):
      peak device memory; once more with method="ladder" (K8), with the
      same quads; then one run under torch.profiler for the device's busy
      share and its kernels by name;
-  5. ntt: K4, K5 and K3 at k = 21 on 4 random columns against their plain
-     versions (bit for bit), intt(ntt(x)) == x, and one column's coset
-     evaluations through K4 -> K5 -> K3 against the native host engine;
+  5. ntt: the device's Montgomery product alone on 2^20 random pairs and
+     the edge values, for Fq and Fr, against the plain PyTorch product; K3
+     and K4 at k = 1, 5, 9, 13 and 16 on 2 random columns and K4, K5 and K3
+     at k = 21 on 4 against their plain versions (bit for bit), each
+     transform in `len(pass_plan(k))` launches, intt(ntt(x)) == x, and one
+     column's coset evaluations through K4 -> K5 -> K3 against the native
+     host engine; the pass kernels' blocks an SM;
   6. quotient: the aggregation circuit's 39 columns at k = 21 (the real
      outer proof's size) through `DeviceQuotient` (feed, finalize, 4
      cosets), K6 against its plain version on the first, last and random
@@ -563,9 +567,60 @@ def coset_shifts(cs, k: int) -> list:
     return [FR_GENERATOR * pow(fr_omega(ext_k), j, R) % R for j in range(1 << (ext_k - k))]
 
 
+def check_product(device, rng) -> dict:
+    """The device's `fe_mul` alone (csrc/ew.cu::h2a_mont_mul) against the
+    plain PyTorch product on 2^20 random pairs and every pair of the edge
+    values 0, 1, p - 1, R mod p and 2^253 - 1, for Fq and Fr."""
+    import torch
+
+    from halo2_aggregation_tpu_torch.fields import Q, R
+    from halo2_aggregation_tpu_torch.ops import build
+    from halo2_aggregation_tpu_torch.ops import field_ops as fo
+    from halo2_aggregation_tpu_torch.ops.limbs import ints_to_tensor, u64_to_port
+
+    lib = build.load_library()
+    n, step = 1 << 20, 1 << 18
+    out = {}
+    for field, (name, spec, p) in enumerate((("Fq", fo.FQ, Q), ("Fr", fo.FR, R))):
+        edge = [0, 1, p - 1, (1 << 256) % p, (1 << 253) - 1]
+        pairs = [(u, v) for u in edge for v in edge]
+        a, b = (torch.from_numpy(u64_to_port(random_columns(rng, 1, n)[0]).copy()).to(device) for _ in range(2))
+        a[: len(pairs)] = ints_to_tensor([u for u, _ in pairs], device)
+        b[: len(pairs)] = ints_to_tensor([v for _, v in pairs], device)
+        got = torch.empty_like(a)
+        build.check(lib.h2a_mont_mul(field, a.data_ptr(), b.data_ptr(), got.data_ptr(), n, build.stream_ptr(device)),
+                    "h2a_mont_mul")
+        want = torch.cat([fo.mont_mul(a[i : i + step], b[i : i + step], spec) for i in range(0, n, step)])
+        out[name] = equal_or_raise(f"fe_mul<{name}>", got, want)
+    return {"pairs": n, "edge_pairs": len(pairs), "max_abs_err": out}
+
+
+def check_transforms(device, rng, k: int, cols: int) -> dict:
+    """K3 and K4 on `cols` random columns of size 2^k against their plain
+    versions, each in `len(pass_plan(k))` launches."""
+    import torch
+
+    from halo2_aggregation_tpu_torch.ops import ntt as nt
+    from halo2_aggregation_tpu_torch.ops.limbs import u64_to_port
+
+    x = torch.from_numpy(u64_to_port(random_columns(rng, cols, 1 << k)).copy()).to(device)
+    tables = nt.NttTables(k, device)
+    passes = len(nt.pass_plan(k))
+    before = (nt.ntt_batched.launches, nt.intt_batched.launches, nt.ew_mul_scalar.launches)
+    fwd = nt.ntt_batched(x.clone(), tables.fwd)
+    inv = nt.intt_batched(x.clone(), tables.inv, tables.n_inv)
+    after = (nt.ntt_batched.launches, nt.intt_batched.launches, nt.ew_mul_scalar.launches)
+    if [b - a for a, b in zip(before, after)] != [passes, passes, 0]:
+        raise AssertionError(f"k = {k}: launches {before} -> {after} for a plan of {passes} passes")
+    equal_or_raise(f"K3 ntt, k = {k}", fwd, nt.ntt_plain(x, tables.fwd))
+    equal_or_raise(f"K4 intt, k = {k}", inv, nt.intt_plain(x, tables.inv, tables.n_inv))
+    return {"k": k, "columns": cols, "passes": passes}
+
+
 def phase_ntt(device, k: int = 21, cols: int = 4):
-    """K4, K5 and K3 against their plain versions on `cols` random columns
-    of size 2^k; returns the kernels' records (without launches)."""
+    """The device's product alone, K3 and K4 at small k, then K4, K5 and K3
+    against their plain versions on `cols` random columns of size 2^k;
+    returns the kernels' records (without launches)."""
     import numpy as np
     import torch
 
@@ -582,8 +637,12 @@ def phase_ntt(device, k: int = 21, cols: int = 4):
     shift = FR_GENERATOR * 0x1234_5678 % R
     s = nt.mont_tensor(shift, device)
     errs = {}
+    product = check_product(device, rng)
+    small = [check_transforms(device, rng, kk, 2) for kk in (1, 5, 9, 13, 16)]
+    passes = len(nt.pass_plan(k))
+    reset_ntt_launches()
 
-    coeffs = nt.intt_batched(x.clone(), tables.inv, tables.n_inv)  # K4 + K5 (1/n)
+    coeffs = nt.intt_batched(x.clone(), tables.inv, tables.n_inv)  # K4, its last pass times 1/n
     want, intt_plain_ms = host_ms(lambda: nt.intt_plain(x, tables.inv, tables.n_inv))
     errs["intt"] = equal_or_raise("K4 intt", coeffs, want)
     del want
@@ -598,6 +657,9 @@ def phase_ntt(device, k: int = 21, cols: int = 4):
     want, ntt_plain_ms = host_ms(lambda: nt.ntt_plain(scaled, tables.fwd))
     errs["ntt"] = equal_or_raise("K3 ntt", evals, want)
     del want
+    if (nt.ntt_batched.launches, nt.intt_batched.launches) != (passes, passes):
+        raise AssertionError(f"k = {k}: K3 and K4 launched {nt.ntt_batched.launches} and "
+                             f"{nt.intt_batched.launches} kernels for a plan of {passes} passes")
     if not torch.equal(nt.intt_batched(nt.ntt_batched(coeffs.clone(), tables.fwd), tables.inv, tables.n_inv),
                        coeffs):
         raise AssertionError("intt(ntt(x)) != x")
@@ -609,17 +671,24 @@ def phase_ntt(device, k: int = 21, cols: int = 4):
     work = x.clone()
     ms = {
         "ntt": cuda_ms(lambda: nt.ntt_batched(work, tables.fwd), reps=3),
-        # K4's stages plus its K5 1/n launch
         "intt": cuda_ms(lambda: nt.intt_batched(work, tables.inv, tables.n_inv), reps=3),
         "ew_mul_col": cuda_ms(lambda: nt.ew_mul_col(work, scale, out=work), reps=5),
         "ew_mul_scalar": cuda_ms(lambda: nt.ew_mul_scalar(work, s, out=work), reps=5),
         "pow_series": cuda_ms(lambda: nt.pow_series(shift, k, device, bitrev=True), reps=5),
     }
     torch.cuda.synchronize()
+    # the power series: the least work for n powers is one product an
+    # element, and n elements written (the kernel spends up to 2 k an element)
+    series = bound(n, n * 32 + 64)
     emit({
         "phase": "ntt", "k": k, "columns": cols, "tolerance": "exact: equal bits",
         "max_abs_err": errs, "roundtrip": True, "host_coset_column_equal": True,
+        "fe_mul_equal_to_plain": product, "small_k_equal_to_plain": small,
+        "pass_plan": nt.pass_plan(k), "launches_a_transform": passes,
+        # the widest pass: shared memory a block, blocks an SM
+        "occupancy": {"ntt": nt.pass_occupancy(False, k), "intt": nt.pass_occupancy(True, k)},
         "kernel_ms": ms, "plain_ms": {"ntt": ntt_plain_ms, "intt": intt_plain_ms, "ew_mul_col": ew_plain_ms},
+        "pow_series_bound_ms": series["bound_ms"], "pow_series_bound_by": series["bound_by"],
     })
     src = "halo2_aggregation_tpu_torch/csrc/"
     # a transform: one twiddle product a butterfly, k stages of n / 2 (the
@@ -639,7 +708,9 @@ def phase_ntt(device, k: int = 21, cols: int = 4):
                "replaces": "halo2_aggregation_tpu/ops/ntt_pallas.py:179",
                "max_abs_err": max(errs["ew_mul_col"], errs["ew_mul_scalar"], errs["pow_series"]),
                "ms": ms["ew_mul_col"], "plain_ms": ew_plain_ms,
-               **bound(cols * n, 2 * col_bytes + n * 32)},
+               **bound(cols * n, 2 * col_bytes + n * 32),
+               "pow_series_ms": ms["pow_series"], "pow_series_bound_ms": series["bound_ms"],
+               "pow_series_bound_by": series["bound_by"]},
     }
 
 
@@ -897,8 +968,10 @@ def phase_msm(device, k: int = 21, k_edge: int = 14, k_prove: int = 16) -> dict:
             "replaces": replaces, "max_abs_err": max_abs_err([got], [want]),
             "ms": prove_ms[name], "plain_ms": prove_plain_ms[name], "n": npr, **prove_bound[name],
             "ms_at_2^%d" % k: kernel_ms[name], "bound_ms_at_2^%d" % k: bound_k[name]["bound_ms"],
+            "edge_n": ne,
             "launches": launches[name],
             "edge_ms": cuda_ms(lambda: launch(xe, ye, digits, C), reps=5), "edge_plain_ms": plain_ms,
+            "edge_bound_ms": msm_bound(digits, signed)["bound_ms"],
         }
     emit({
         "phase": "msm", "k": k, "n": n, "tolerance": "exact: equal affine points",
@@ -913,8 +986,9 @@ def phase_msm(device, k: int = 21, k_edge: int = 14, k_prove: int = 16) -> dict:
         "prove_n": npr, "prove_n_equal_plain_and_native": True,
         "prove_n_kernel_ms": prove_ms, "prove_n_plain_ms": prove_plain_ms,
         "edge_n": ne, "edge_equal_plain_and_native": True,
-        "edge_kernel_ms": {nm: r.pop("edge_ms") for nm, r in records.items()},
-        "edge_plain_ms": {nm: r.pop("edge_plain_ms") for nm, r in records.items()},
+        "edge_kernel_ms": {nm: r["edge_ms"] for nm, r in records.items()},
+        "edge_plain_ms": {nm: r["edge_plain_ms"] for nm, r in records.items()},
+        "edge_bound_ms": {nm: r["edge_bound_ms"] for nm, r in records.items()},
     })
     return records
 

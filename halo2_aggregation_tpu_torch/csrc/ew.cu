@@ -57,6 +57,18 @@ __global__ void pow_series_kernel(uint32_t* __restrict__ out,
   st_fe(out + (size_t)i * NL, fe_pow_times(ld_fe(start), ld_fe(base), e, k));
 }
 
+// out[i] = a[i] * b[i] in F: the device's fe_mul alone, for the check of
+// the product itself against the plain PyTorch one.
+template <class F>
+__global__ void mont_mul_kernel(const uint32_t* __restrict__ a,
+                                const uint32_t* __restrict__ b,
+                                uint32_t* __restrict__ out, uint32_t n) {
+  uint32_t i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  size_t e = (size_t)i * NL;
+  st_fe(out + e, fe_mul<F>(ld_fe(a + e), ld_fe(b + e)));
+}
+
 }  // namespace
 
 // Each entry point launches on `stream` and returns cudaGetLastError().
@@ -87,5 +99,19 @@ extern "C" int h2a_pow_series(uint32_t* out, const uint32_t* start,
   unsigned blocks = ((1u << k) + kThreads - 1) / kThreads;
   pow_series_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
       out, start, base, k, bitrev);
+  return (int)cudaGetLastError();
+}
+
+// Test entry: out[i] = a[i] * b[i] for n elements of Fq (field == 0) or Fr.
+extern "C" int h2a_mont_mul(int field, const uint32_t* a, const uint32_t* b,
+                            uint32_t* out, int n, void* stream) {
+  if (n <= 0) return 0;
+  unsigned blocks = ((unsigned)n + kThreads - 1) / kThreads;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (field) {
+    mont_mul_kernel<Fr><<<blocks, kThreads, 0, st>>>(a, b, out, (uint32_t)n);
+  } else {
+    mont_mul_kernel<Fq><<<blocks, kThreads, 0, st>>>(a, b, out, (uint32_t)n);
+  }
   return (int)cudaGetLastError();
 }

@@ -10,7 +10,13 @@
 //
 // Every function is __host__ __device__: nvcc builds the kernels from this
 // header, and g++ builds the same code into a host library for the CPU
-// tests (csrc/host_shim.cpp).
+// tests (csrc/host_shim.cpp).  On the card the product, the sum and the
+// difference keep their carries in the flag register (fe_mul_cc, fe_add_cc,
+// fe_sub_cc: a kernel that does one product is 216 instructions, 123 of
+// them 64-bit-wide multiply-adds); the portable bodies stay for g++ and as
+// the reference of the tests, which also run the flag forms with the flag
+// in a variable.  Measured on an NVIDIA H100 80GB HBM3 (700 W), every
+// kernel gained by it, the lane-serial ones 3x: PERF.md has the table.
 #pragma once
 
 #include <stddef.h>
@@ -109,24 +115,131 @@ H2A_HD uint32_t add_limbs(uint32_t r[NL], const uint32_t a[NL],
   return (uint32_t)(c >> 32);
 }
 
+// ---------------------------------------------------------------------------
+// The carry flag.  On the device each function below is one PTX instruction
+// that reads and/or writes CC.CF, so a 256-bit sum costs one instruction a
+// limb and a 32 x 32 -> 64-bit multiply-add two (which ptxas pairs into one
+// wide multiply-add with carry); a chain is a run of them in program order
+// with nothing else that touches the flag between (the compiler itself
+// emits no such instruction).  The host build keeps the flag in `Carry`, so
+// g++ runs the very chains the card runs (csrc/host_shim.cpp).
+// ---------------------------------------------------------------------------
+
+struct Carry {
+  uint32_t cf = 0;  // unused on the device
+};
+
+H2A_HD uint32_t cc_out(Carry& f, uint64_t s) {
+  f.cf = (uint32_t)(s >> 32) & 1u;  // a sum's carry, a difference's borrow
+  return (uint32_t)s;
+}
+
+H2A_HD uint32_t mul_hi(uint32_t a, uint32_t b) {
+  return (uint32_t)(((uint64_t)a * b) >> 32);
+}
+
+// name(f, a, b[, c]): the PTX instruction on the device, `expr` elsewhere.
+#ifdef __CUDA_ARCH__
+#define H2A_CC3(name, ptx, expr)                                  \
+  H2A_HD uint32_t name(Carry& f, uint32_t a, uint32_t b) {        \
+    uint32_t r;                                                   \
+    asm volatile(ptx " %0, %1, %2;" : "=r"(r) : "r"(a), "r"(b));  \
+    return r;                                                     \
+  }
+#define H2A_CC4(name, ptx, expr)                                          \
+  H2A_HD uint32_t name(Carry& f, uint32_t a, uint32_t b, uint32_t c) {    \
+    uint32_t r;                                                           \
+    asm volatile(ptx " %0, %1, %2, %3;"                                   \
+                 : "=r"(r)                                                \
+                 : "r"(a), "r"(b), "r"(c));                               \
+    return r;                                                             \
+  }
+#else
+#define H2A_CC3(name, ptx, expr) \
+  H2A_HD uint32_t name(Carry& f, uint32_t a, uint32_t b) { return expr; }
+#define H2A_CC4(name, ptx, expr)                                       \
+  H2A_HD uint32_t name(Carry& f, uint32_t a, uint32_t b, uint32_t c) { \
+    return expr;                                                       \
+  }
+#endif
+H2A_CC3(add_cc, "add.cc.u32", cc_out(f, (uint64_t)a + b))            // carry out
+H2A_CC3(addc_cc, "addc.cc.u32", cc_out(f, (uint64_t)a + b + f.cf))   // carry in, out
+H2A_CC3(addc, "addc.u32", a + b + f.cf)                              // carry in
+H2A_CC3(sub_cc, "sub.cc.u32", cc_out(f, (uint64_t)a - b))            // borrow out
+H2A_CC3(subc_cc, "subc.cc.u32", cc_out(f, (uint64_t)a - b - f.cf))   // borrow in, out
+H2A_CC3(subc, "subc.u32", a - b - f.cf)                              // borrow in
+// lo(a b) + c and hi(a b) + c, with the carry in (madc) and out (.cc)
+H2A_CC4(mad_lo_cc, "mad.lo.cc.u32", cc_out(f, (uint64_t)(uint32_t)(a * b) + c))
+H2A_CC4(madc_lo_cc, "madc.lo.cc.u32", cc_out(f, (uint64_t)(uint32_t)(a * b) + c + f.cf))
+H2A_CC4(madc_hi_cc, "madc.hi.cc.u32", cc_out(f, (uint64_t)mul_hi(a, b) + c + f.cf))
+H2A_CC4(madc_hi, "madc.hi.u32", mul_hi(a, b) + c + f.cf)
+#undef H2A_CC3
+#undef H2A_CC4
+
+// a + b mod p on the flag: one chain for the sum, one for the trial
+// subtraction of p.  a, b canonical: a + b < 2p < 2^255, no carry out.
+template <class F>
+H2A_HD Fe fe_add_cc(const Fe& a, const Fe& b) {
+  uint32_t p[NL];
+  load_p<F>(p);
+  Carry f;
+  Fe s, d;
+  s.v[0] = add_cc(f, a.v[0], b.v[0]);
+#pragma unroll
+  for (int j = 1; j < NL - 1; j++) s.v[j] = addc_cc(f, a.v[j], b.v[j]);
+  s.v[NL - 1] = addc(f, a.v[NL - 1], b.v[NL - 1]);
+  d.v[0] = sub_cc(f, s.v[0], p[0]);
+#pragma unroll
+  for (int j = 1; j < NL; j++) d.v[j] = subc_cc(f, s.v[j], p[j]);
+  uint32_t borrow = subc(f, 0, 0);
+  return borrow ? s : d;
+}
+
+// a - b mod p on the flag: the difference, then p added back under the
+// borrow's mask.
+template <class F>
+H2A_HD Fe fe_sub_cc(const Fe& a, const Fe& b) {
+  uint32_t p[NL];
+  load_p<F>(p);
+  Carry f;
+  Fe d;
+  d.v[0] = sub_cc(f, a.v[0], b.v[0]);
+#pragma unroll
+  for (int j = 1; j < NL; j++) d.v[j] = subc_cc(f, a.v[j], b.v[j]);
+  uint32_t mask = subc(f, 0, 0);  // all ones after a borrow
+  d.v[0] = add_cc(f, d.v[0], p[0] & mask);
+#pragma unroll
+  for (int j = 1; j < NL - 1; j++) d.v[j] = addc_cc(f, d.v[j], p[j] & mask);
+  d.v[NL - 1] = addc(f, d.v[NL - 1], p[NL - 1] & mask);
+  return d;
+}
+
 // a, b canonical: a + b < 2p < 2^255, so one conditional subtraction.
 template <class F>
 H2A_HD Fe fe_add(const Fe& a, const Fe& b) {
+#ifdef __CUDA_ARCH__
+  return fe_add_cc<F>(a, b);
+#else
   uint32_t p[NL];
   load_p<F>(p);
   Fe s, d;
   add_limbs(s.v, a.v, b.v);
   uint32_t borrow = sub_limbs(d.v, s.v, p);
   return borrow ? s : d;
+#endif
 }
 
 template <class F>
 H2A_HD Fe fe_sub(const Fe& a, const Fe& b) {
+#ifdef __CUDA_ARCH__
+  return fe_sub_cc<F>(a, b);
+#else
   uint32_t p[NL];
   load_p<F>(p);
   Fe d;
   if (sub_limbs(d.v, a.v, b.v)) add_limbs(d.v, d.v, p);
   return d;
+#endif
 }
 
 template <class F>
@@ -134,10 +247,96 @@ H2A_HD Fe fe_neg(const Fe& a) {
   return fe_sub<F>(fe_zero(), a);
 }
 
+// acc += (x[0] + x[2] 2^64 + x[4] 2^128 + x[6] 2^192) y over acc's 8 limbs:
+// each 64-bit product lands on its own pair of limbs, one chain through
+// all four.  Leaves the carry out of limb 7 in the flag.
+H2A_HD void cc_mad_pairs(Carry& f, uint32_t acc[NL], const uint32_t* x,
+                         uint32_t y) {
+  acc[0] = mad_lo_cc(f, x[0], y, acc[0]);
+  acc[1] = madc_hi_cc(f, x[0], y, acc[1]);
+#pragma unroll
+  for (int j = 2; j < NL; j += 2) {
+    acc[j] = madc_lo_cc(f, x[j], y, acc[j]);
+    acc[j + 1] = madc_hi_cc(f, x[j], y, acc[j + 1]);
+  }
+}
+
+// The same CIOS product as fe_mul's portable body below, with its carries in
+// the flag.  The running sum T is kept as two 8-limb numbers, T = even + odd
+// 2^32: the products of a's (and p's) even limbs go to `even`, those of the
+// odd limbs to `odd`, so every 64-bit product is added to an aligned pair of
+// limbs and no 64-bit carry word passes from step to step.  Per limb b_i of
+// b: T += a b_i; m = T mod 2^32 times -1/p; T += m p; T /= 2^32.  The
+// division swaps the roles: the old `odd` is the new `even`, and the old
+// `even` (its limb 0 now zero) moves down two limbs to become the new
+// `odd`, its limb 1 added into the new even's limb 0.  T < 2^288 inside a
+// step and T < 2p after it, so neither number outgrows its limbs: the carry
+// out of even's limb 7 goes into odd's limb 7, and odd has no carry out.
+template <class F>
+H2A_HD Fe fe_mul_cc(const Fe& a, const Fe& b) {
+  uint32_t p[NL];
+  load_p<F>(p);
+  uint32_t even[NL], odd[NL];
+  Carry f;
+  // step 0: T = a b_0 + m p
+#pragma unroll
+  for (int j = 0; j < NL; j += 2) {
+    uint64_t e = (uint64_t)a.v[j] * b.v[0], o = (uint64_t)a.v[j + 1] * b.v[0];
+    even[j] = (uint32_t)e;
+    even[j + 1] = (uint32_t)(e >> 32);
+    odd[j] = (uint32_t)o;
+    odd[j + 1] = (uint32_t)(o >> 32);
+  }
+  uint32_t m = even[0] * F::INV;
+  cc_mad_pairs(f, odd, p + 1, m);
+  cc_mad_pairs(f, even, p, m);
+  odd[NL - 1] = addc(f, odd[NL - 1], 0);
+#pragma unroll
+  for (int i = 1; i < NL; i++) {
+    // e: last step's odd, this step's even; o: last step's even (limb 0
+    // zero), which becomes this step's odd
+    uint32_t* e = (i & 1) ? odd : even;
+    uint32_t* o = (i & 1) ? even : odd;
+    uint32_t bi = b.v[i];
+    e[0] = add_cc(f, e[0], o[1]);
+    // o = (o >> 64) + (a_1 + a_3 2^64 + ..) b_i + the carry of the line above
+#pragma unroll
+    for (int j = 0; j < NL - 2; j += 2) {
+      o[j] = madc_lo_cc(f, a.v[j + 1], bi, o[j + 2]);
+      o[j + 1] = madc_hi_cc(f, a.v[j + 1], bi, o[j + 3]);
+    }
+    o[NL - 2] = madc_lo_cc(f, a.v[NL - 1], bi, 0);
+    o[NL - 1] = madc_hi(f, a.v[NL - 1], bi, 0);
+    cc_mad_pairs(f, e, a.v, bi);
+    o[NL - 1] = addc(f, o[NL - 1], 0);
+    m = e[0] * F::INV;
+    cc_mad_pairs(f, o, p + 1, m);
+    cc_mad_pairs(f, e, p, m);
+    o[NL - 1] = addc(f, o[NL - 1], 0);
+  }
+  // after step 7 `odd` was the step's even (limb 0 zero) and `even` its odd:
+  // T = even + (odd >> 32) < 2p
+  Fe r, d;
+  r.v[0] = add_cc(f, even[0], odd[1]);
+#pragma unroll
+  for (int j = 1; j < NL - 1; j++) r.v[j] = addc_cc(f, even[j], odd[j + 1]);
+  r.v[NL - 1] = addc(f, even[NL - 1], 0);
+  d.v[0] = sub_cc(f, r.v[0], p[0]);
+#pragma unroll
+  for (int j = 1; j < NL; j++) d.v[j] = subc_cc(f, r.v[j], p[j]);
+  uint32_t borrow = subc(f, 0, 0);
+  return borrow ? r : d;
+}
+
 // CIOS Montgomery product a * b / 2^256 mod p (native/h2a_native.cpp:98 with
-// 32-bit words).  Every partial sum t + a*b + carry fits in 64 bits.
+// 32-bit words).  Every partial sum t + a*b + carry fits in 64 bits.  The
+// card runs the carry-flag form above; g++ this portable one, which is also
+// the reference the tests hold the other to.
 template <class F>
 H2A_HD Fe fe_mul(const Fe& a, const Fe& b) {
+#ifdef __CUDA_ARCH__
+  return fe_mul_cc<F>(a, b);
+#else
   uint32_t p[NL];
   load_p<F>(p);
   uint32_t t[NL + 2];
@@ -171,6 +370,7 @@ H2A_HD Fe fe_mul(const Fe& a, const Fe& b) {
   for (int j = 0; j < NL; j++) r.v[j] = t[j];
   uint32_t borrow = sub_limbs(d.v, r.v, p);
   return (t[NL] || !borrow) ? d : r;
+#endif
 }
 
 template <class F>

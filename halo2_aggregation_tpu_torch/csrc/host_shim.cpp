@@ -1,7 +1,7 @@
 // Host build of the kernels' arithmetic: g++ compiles the same headers the
 // CUDA kernels use, so the CPU tests check K1's, K2's, K6's and K8's per-lane
-// code, the NTT butterflies and index maps of K3-K5, the mixed add and the
-// per-thread bucket pass, fold and Horner of K7 and K9 without a card
+// code, the NTT butterflies, index maps and fused passes of K3-K5, the mixed
+// add and the per-thread bucket pass, fold and Horner of K7 and K9 without a card
 // (tests/test_torch_host_core.py).  Not part of the CUDA library.  Layouts
 // match the kernels': elements are 8 x 32-bit limbs.
 #include "ec_ladder.cuh"
@@ -35,6 +35,32 @@ void h2a_host_mont_mul(int field, const uint32_t* a, const uint32_t* b,
   for (int i = 0; i < n; i++) {
     Fe x = load(a + NL * i), y = load(b + NL * i);
     store(out + NL * i, field ? fe_mul<Fr>(x, y) : fe_mul<Fq>(x, y));
+  }
+}
+
+// The same product through fe_mul_cc, the form the card runs, with the carry
+// flag kept in a variable.
+void h2a_host_mont_mul_cc(int field, const uint32_t* a, const uint32_t* b,
+                          uint32_t* out, int n) {
+  for (int i = 0; i < n; i++) {
+    Fe x = load(a + NL * i), y = load(b + NL * i);
+    store(out + NL * i, field ? fe_mul_cc<Fr>(x, y) : fe_mul_cc<Fq>(x, y));
+  }
+}
+
+// sum[i] = a[i] + b[i], diff[i] = a[i] - b[i]: through the portable forms
+// (cc == 0) or the carry-flag forms the card runs.
+void h2a_host_add_sub(int field, int cc, const uint32_t* a, const uint32_t* b,
+                      uint32_t* sum, uint32_t* diff, int n) {
+  for (int i = 0; i < n; i++) {
+    Fe x = load(a + NL * i), y = load(b + NL * i);
+    if (field) {
+      store(sum + NL * i, cc ? fe_add_cc<Fr>(x, y) : fe_add<Fr>(x, y));
+      store(diff + NL * i, cc ? fe_sub_cc<Fr>(x, y) : fe_sub<Fr>(x, y));
+    } else {
+      store(sum + NL * i, cc ? fe_add_cc<Fq>(x, y) : fe_add<Fq>(x, y));
+      store(diff + NL * i, cc ? fe_sub_cc<Fq>(x, y) : fe_sub<Fq>(x, y));
+    }
   }
 }
 
@@ -159,8 +185,8 @@ void h2a_host_fa_tape(const int32_t* tape, int n_instr, const uint32_t* consts,
 }
 
 // Stage s of a size-2^k transform over `cols` columns of x (cols, n, 8), in
-// place, through ntt_pair and the DIT (dif == 0) or DIF butterfly: the
-// loop body of K3 / K4.
+// place, through ntt_pair and the DIT (dif == 0) or DIF butterfly: one
+// stage at a time, the reference that the fused passes below are held to.
 void h2a_host_ntt_stage(uint32_t* x, const uint32_t* tw, int cols, int k,
                         int s, int dif) {
   for (int c = 0; c < cols; c++) {
@@ -178,6 +204,41 @@ void h2a_host_ntt_stage(uint32_t* x, const uint32_t* tw, int cols, int k,
       store(col + (size_t)p.hi * NL, hi);
     }
   }
+}
+
+// Stages s0 .. s0 + r - 1 of a size-2^k transform over `cols` columns of x,
+// in place, as the blocks of K3's (dif == 0) or K4's pass kernel run them:
+// tile by tile through ntt_tile_load, ntt_tile_stages and ntt_tile_store,
+// every element times *scale at the store where scale is not null.
+// Returns 2^c, the elements of a tile's contiguous runs.
+int h2a_host_ntt_pass(uint32_t* x, const uint32_t* tw, const uint32_t* scale,
+                      int cols, int k, int s0, int r, int dif) {
+  NttPass P{k, s0, r, ntt_pass_chunk_bits(k, s0, r)};
+  uint32_t* tile = new uint32_t[(size_t)NL << (P.r + P.c)];
+  for (int c = 0; c < cols; c++) {
+    uint32_t* col = x + ((size_t)c << k) * NL;
+    for (uint32_t block = 0; block < (1u << (k - P.r - P.c)); block++) {
+      ntt_tile_load(tile, P, block, col, 0, 1);
+      if (dif) {
+        ntt_tile_stages<true>(tile, P, block, tw, 0, 1);
+      } else {
+        ntt_tile_stages<false>(tile, P, block, tw, 0, 1);
+      }
+      ntt_tile_store(tile, P, block, col, scale, 0, 1);
+    }
+  }
+  delete[] tile;
+  return 1 << P.c;
+}
+
+// out[block][u] = ntt_tile_index of every slot of every tile of the pass:
+// 2^k entries.
+void h2a_host_ntt_tile_indices(int k, int s0, int r, uint32_t* out) {
+  NttPass P{k, s0, r, ntt_pass_chunk_bits(k, s0, r)};
+  uint32_t elems = 1u << (P.r + P.c);
+  for (uint32_t block = 0; block < (1u << (k - P.r - P.c)); block++)
+    for (uint32_t u = 0; u < elems; u++)
+      out[(size_t)block * elems + u] = ntt_tile_index(P, block, u);
 }
 
 // out[i] = start * base^idx(i), i < 2^k: K5's pow_series element.

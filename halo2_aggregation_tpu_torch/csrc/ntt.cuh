@@ -1,7 +1,7 @@
-// Radix-2 NTT butterflies, stage index maps and the power-series element
-// for kernels K3 (forward NTT), K4 (inverse NTT) and K5 (pow_series).
-// Shared by the CUDA kernels (ntt.cu, ew.cu) and the host build
-// (host_shim.cpp).
+// Radix-2 NTT butterflies, the fused passes' index maps and tile code, and
+// the power-series element for kernels K3 (forward NTT), K4 (inverse NTT)
+// and K5 (pow_series).  Shared by the CUDA kernels (ntt.cu, ew.cu) and the
+// host build (host_shim.cpp).
 //
 // Counterpart of the butterfly math and index maps of
 // halo2_aggregation_tpu/ops/ntt_pallas.py (:100-112, :117-176, :308-363),
@@ -11,6 +11,13 @@
 // Twiddles come from one natural-order table of omega^0 .. omega^(n/2 - 1)
 // (omega^-1 for the inverse): the twiddle of pair j in stage s is
 // omega^(j n / 2^(s+1)), entry j << (k - 1 - s).
+//
+// A pass (NttPass) runs r consecutive stages s0 .. s0 + r - 1 on tiles of
+// 2^(r + c) elements: 2^c neighbouring groups of the 2^r elements that
+// agree in every index bit outside s0 .. s0 + r - 1.  ntt_tile_index maps a
+// tile slot to its element, ntt_tile_load / _stages / _store are the body
+// of a block, written over a plain array so that the host build runs a
+// pass block by block with the same code.
 #pragma once
 
 #include "field.cuh"
@@ -88,5 +95,160 @@ __device__ __forceinline__ void st_fe(uint32_t* p, const Fe& r) {
   q[1] = make_uint4(r.v[4], r.v[5], r.v[6], r.v[7]);
 }
 #endif
+
+// One element of a (.., 8) array in device or host memory.
+H2A_HD Fe fe_load(const uint32_t* p) {
+#ifdef __CUDA_ARCH__
+  return ld_fe(p);
+#else
+  Fe r;
+  for (int i = 0; i < NL; i++) r.v[i] = p[i];
+  return r;
+#endif
+}
+
+H2A_HD void fe_store(uint32_t* p, const Fe& r) {
+#ifdef __CUDA_ARCH__
+  st_fe(p, r);
+#else
+  for (int i = 0; i < NL; i++) p[i] = r.v[i];
+#endif
+}
+
+// ---------------------------------------------------------------------------
+// fused passes
+// ---------------------------------------------------------------------------
+
+// Most stages a pass fuses, and most low index bits a tile adds so that its
+// global accesses are runs of 2^c elements (2^c x 32 contiguous bytes).
+// ops/ntt.py mirrors both (R_MAX, C_MAX) and the two functions below.
+constexpr int kNttMaxStages = 7;
+constexpr int kNttMaxChunkBits = 2;
+
+// Stages s0 .. s0 + r - 1 of a size-2^k transform, on tiles of 2^(r + c)
+// elements.
+struct NttPass {
+  int k, s0, r, c;
+};
+
+// The c of a pass: the index bits below s0 when there are any (then the
+// tile's runs are 2^c neighbours below the stages' bits), else the bits
+// above the group (the tile is 2^(r + c) contiguous elements); as many as
+// kNttMaxChunkBits where the transform has them.
+H2A_HD int ntt_pass_chunk_bits(int k, int s0, int r) {
+  int room = s0 > 0 ? s0 : k - r;
+  return room < kNttMaxChunkBits ? room : kNttMaxChunkBits;
+}
+
+// Element index of slot u (0 <= u < 2^(r + c)) of tile `block`
+// (0 <= block < 2^(k - r - c)).  With low = c if s0 > 0, else 0: the slot's
+// low `low` bits are the element's, the slot's other bits sit at bit s0 of
+// the element, and the block's bits fill the rest, low part first.  Stage
+// s of the pass pairs slots that differ in slot bit s - s0 + low.
+H2A_HD uint32_t ntt_tile_index(const NttPass& P, uint32_t block, uint32_t u) {
+  int low = P.s0 > 0 ? P.c : 0;
+  int mid = P.s0 - low;           // block bits between the run and the stages
+  int top = P.s0 + P.r + P.c - low;  // first element bit above the slot's
+  uint32_t idx = (u & ((1u << low) - 1)) | ((u >> low) << P.s0);
+  idx |= (block & ((1u << mid) - 1)) << low;
+  return idx | ((block >> mid) << top);  // top <= k < 32
+}
+
+// The tile is half-major: words 4h .. 4h + 3 of slot u are the 16 bytes at
+// tile[(h * elems + u) * 4], h = 0, 1, so a thread moves an element in two
+// 16-byte accesses and threads on neighbouring slots hit neighbouring
+// shared-memory banks (8 threads cover all 32).  The tile is 16-byte
+// aligned.
+H2A_HD Fe ntt_tile_get(const uint32_t* tile, uint32_t elems, uint32_t u) {
+  Fe r;
+#ifdef __CUDA_ARCH__
+  const uint4* q = reinterpret_cast<const uint4*>(tile);
+  uint4 a = q[u], b = q[elems + u];
+  r.v[0] = a.x; r.v[1] = a.y; r.v[2] = a.z; r.v[3] = a.w;
+  r.v[4] = b.x; r.v[5] = b.y; r.v[6] = b.z; r.v[7] = b.w;
+#else
+  for (int l = 0; l < NL; l++)
+    r.v[l] = tile[((size_t)(l / 4) * elems + u) * 4 + l % 4];
+#endif
+  return r;
+}
+
+H2A_HD void ntt_tile_put(uint32_t* tile, uint32_t elems, uint32_t u,
+                         const Fe& r) {
+#ifdef __CUDA_ARCH__
+  uint4* q = reinterpret_cast<uint4*>(tile);
+  q[u] = make_uint4(r.v[0], r.v[1], r.v[2], r.v[3]);
+  q[elems + u] = make_uint4(r.v[4], r.v[5], r.v[6], r.v[7]);
+#else
+  for (int l = 0; l < NL; l++)
+    tile[((size_t)(l / 4) * elems + u) * 4 + l % 4] = r.v[l];
+#endif
+}
+
+// Between two steps of a tile every thread of the block must have finished
+// the earlier one; the host build runs a block in one thread.
+#ifdef __CUDA_ARCH__
+#define H2A_TILE_SYNC() __syncthreads()
+#else
+#define H2A_TILE_SYNC() ((void)0)
+#endif
+
+// Thread `thread` of `nthreads` loads its share of tile `block` of column
+// `col` (2^k elements).
+H2A_HD void ntt_tile_load(uint32_t* tile, const NttPass& P, uint32_t block,
+                          const uint32_t* col, uint32_t thread,
+                          uint32_t nthreads) {
+  uint32_t elems = 1u << (P.r + P.c);
+  for (uint32_t u = thread; u < elems; u += nthreads)
+    ntt_tile_put(tile, elems, u,
+                 fe_load(col + (size_t)ntt_tile_index(P, block, u) * NL));
+}
+
+// The pass's r stages on a loaded tile: upward from s0 with the DIT
+// butterfly (K3), downward from s0 + r - 1 with the DIF butterfly (K4).
+// The twiddle of a butterfly comes from its element index, as in ntt_pair:
+// entry (lo mod 2^s) << (k - 1 - s) of tw.
+template <bool DIF>
+H2A_HD void ntt_tile_stages(uint32_t* tile, const NttPass& P, uint32_t block,
+                            const uint32_t* tw, uint32_t thread,
+                            uint32_t nthreads) {
+  uint32_t elems = 1u << (P.r + P.c), half = elems >> 1;
+  int low = P.s0 > 0 ? P.c : 0;
+  for (int i = 0; i < P.r; i++) {
+    int s = DIF ? P.s0 + P.r - 1 - i : P.s0 + i;
+    int bit = s - P.s0 + low;
+    H2A_TILE_SYNC();
+    for (uint32_t t = thread; t < half; t += nthreads) {
+      uint32_t lo = ((t >> bit) << (bit + 1)) | (t & ((1u << bit) - 1));
+      uint32_t hi = lo + (1u << bit);
+      uint32_t j = ntt_tile_index(P, block, lo) & ((1u << s) - 1);
+      Fe w = fe_load(tw + ((size_t)j << (P.k - 1 - s)) * NL);
+      Fe a = ntt_tile_get(tile, elems, lo), b = ntt_tile_get(tile, elems, hi);
+      if (DIF) {
+        dif_butterfly(a, b, w);
+      } else {
+        dit_butterfly(a, b, w);
+      }
+      ntt_tile_put(tile, elems, lo, a);
+      ntt_tile_put(tile, elems, hi, b);
+    }
+  }
+  H2A_TILE_SYNC();
+}
+
+// Stores the tile back; every element times *scale where scale is not
+// null (K4's 1/n, in its last pass).
+H2A_HD void ntt_tile_store(const uint32_t* tile, const NttPass& P,
+                           uint32_t block, uint32_t* col,
+                           const uint32_t* scale, uint32_t thread,
+                           uint32_t nthreads) {
+  uint32_t elems = 1u << (P.r + P.c);
+  Fe sc = scale ? fe_load(scale) : fe_zero();
+  for (uint32_t u = thread; u < elems; u += nthreads) {
+    Fe v = ntt_tile_get(tile, elems, u);
+    if (scale) v = fe_mul<Fr>(v, sc);
+    fe_store(col + (size_t)ntt_tile_index(P, block, u) * NL, v);
+  }
+}
 
 }  // namespace h2a

@@ -47,12 +47,16 @@ _SIGNATURES = {
     "h2a_ec_ladder": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _P],
     # tape, n_instr, consts, in, n_in, tmp, out_regs, n_out, out, lanes, stream
     "h2a_fa_tape": [_P, _I, _P, _P, _I, _P, _P, _I, _P, _I, _P],
-    # x, tw, cols, k, s, dif, stream
-    "h2a_ntt_stage": [_P, _P, _I, _I, _I, _I, _P],
+    # x, tw, scale (or null), cols, k, s0, r, dif, stream
+    "h2a_ntt_pass": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # dif, tile_bytes, blocks_per_sm (out), sms (out)
+    "h2a_ntt_occupancy": [_I, _I, _P, _P],
     # x, col, out, cols, n, stream
     "h2a_ew_mul_col": [_P, _P, _P, _I, _I, _P],
     # x, s, out, total, stream
     "h2a_ew_mul_scalar": [_P, _P, _P, _L, _P],
+    # field (0 = Fq, 1 = Fr), a, b, out, n, stream
+    "h2a_mont_mul": [_I, _P, _P, _P, _I, _P],
     # out, start, base, k, bitrev, stream
     "h2a_pow_series": [_P, _P, _P, _I, _I, _P],
     # tape, n_instr, consts, in_src, in_rot, n_in, stack, x, uniforms, n,
@@ -168,6 +172,8 @@ def build_host_library(out_dir) -> ctypes.CDLL:
     lib = ctypes.CDLL(str(so))
     sigs = {
         "h2a_host_mont_mul": [_I, _P, _P, _P, _I],
+        "h2a_host_mont_mul_cc": [_I, _P, _P, _P, _I],
+        "h2a_host_add_sub": [_I, _I, _P, _P, _P, _P, _I],
         "h2a_host_jac_add": [_P, _P, _P, _I],
         "h2a_host_jac_add_mixed": [_P, _P, _P, _P, _I],
         "h2a_host_ec_win": [_P, _P, _P, _P, _P, _P, _P, _I],
@@ -177,11 +183,13 @@ def build_host_library(out_dir) -> ctypes.CDLL:
         "h2a_host_msm_horner": [_I, _P, _P],
         "h2a_host_fa_tape": [_P, _I, _P, _P, _I, _P, _P, _I, _P, _I],
         "h2a_host_ntt_stage": [_P, _P, _I, _I, _I, _I],
+        "h2a_host_ntt_pass": [_P, _P, _P, _I, _I, _I, _I, _I],
+        "h2a_host_ntt_tile_indices": [_I, _I, _I, _P],
         "h2a_host_pow_series": [_P, _P, _P, _I, _I],
         "h2a_host_quotient_rows": [_P, _I, _P, _P, _P, _I, _P, _P, _P, _I, _I, _P, _I, _P],
     }
     for name, argtypes in sigs.items():
         fn = getattr(lib, name)
         fn.argtypes = argtypes
-        fn.restype = _I if name == "h2a_host_msm_sort" else None
+        fn.restype = _I if name in ("h2a_host_msm_sort", "h2a_host_ntt_pass") else None
     return lib

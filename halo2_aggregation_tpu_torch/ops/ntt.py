@@ -13,21 +13,29 @@ layout and 128-lane tiles):
 * `ntt_batched`: bit-reversed coefficients -> natural-order evaluations
   (DIT, kernel K3);
 * `intt_batched`: natural-order evaluations -> bit-reversed coefficients,
-  times 1/n (DIF, kernel K4, then one K5 scalar product), so INTT -> scale
-  -> NTT needs no permutation anywhere;
+  times 1/n (DIF, kernel K4, which multiplies by 1/n as its last pass
+  stores), so INTT -> scale -> NTT needs no permutation anywhere;
 * `ew_mul_col`, `ew_mul_scalar`, `pow_series`: kernel K5.
 
 Both transforms run in place on the stack they are given.  Twiddles come
 from one natural-order table of root powers per direction (`NttTables`),
 built by the native engine's `pow_series`.
 
+On the card a transform of size 2^k is `len(pass_plan(k))` launches: a
+pass runs up to `R_MAX` consecutive stages on tiles held in shared memory
+(`csrc/ntt.cu`), so the stack crosses device memory once a pass and not once
+a stage.  `pass_plan`, `pass_chunk_bits` and `tile_indices` mirror the
+kernel's geometry (`csrc/ntt.cuh`) for the tests.
+
 Every wrapper takes its kernel's plain PyTorch version for a CPU tensor,
 and launches the kernel (or raises) for a CUDA tensor.  Each has a launch
 count, `.launches`, raised by one per kernel launch (a transform launches
-one kernel per stage).
+one kernel per pass).
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import numpy as np
 import torch
@@ -37,6 +45,13 @@ from ..plonk import engine
 from . import build
 from . import field_ops as fo
 from .limbs import NL, u64_to_port
+
+# most stages one pass fuses, and most low index bits a tile adds to make its
+# global accesses runs of 2^c elements (csrc/ntt.cuh: kNttMaxStages,
+# kNttMaxChunkBits)
+R_MAX = 7
+C_MAX = 2
+PASS_THREADS = 128  # threads of a pass kernel's block (csrc/ntt.cu: kPassThreads)
 
 # elements per plain-version step: bounds the 16-bit-limb products'
 # temporaries (about 10 KB an element) to a few GB
@@ -62,6 +77,40 @@ def half_series(root: int, k: int, device) -> torch.Tensor:
     """root^0 .. root^(n/2 - 1), natural order, as (n/2, 8) Montgomery."""
     pows = engine.pow_series(engine.mont_scalar(root), 1 << (k - 1))
     return torch.from_numpy(u64_to_port(pows).copy()).to(device)
+
+
+def pass_plan(k: int) -> list:
+    """The passes of a size-2^k transform as [(s0, r), ...]: the k stages
+    cut into ceil(k / R_MAX) runs of nearly equal length, in ascending
+    order (K3 runs them first to last, K4 last to first)."""
+    if k < 1:
+        raise ValueError(f"k = {k}: transforms need n >= 2")
+    passes = -(-k // R_MAX)
+    base, extra = divmod(k, passes)
+    plan, s0 = [], 0
+    for i in range(passes):
+        r = base + (i < extra)
+        plan.append((s0, r))
+        s0 += r
+    return plan
+
+
+def pass_chunk_bits(k: int, s0: int, r: int) -> int:
+    """c of a pass (csrc/ntt.cuh::ntt_pass_chunk_bits): its tiles hold
+    2^(r + c) elements in runs of 2^c neighbours."""
+    return min(C_MAX, s0 if s0 > 0 else k - r)
+
+
+def tile_indices(k: int, s0: int, r: int) -> np.ndarray:
+    """Element index of every slot of every tile of a pass
+    (csrc/ntt.cuh::ntt_tile_index), as (tiles, 2^(r + c)) int64."""
+    c = pass_chunk_bits(k, s0, r)
+    low = c if s0 > 0 else 0
+    mid, top = s0 - low, s0 + r + c - low
+    u = np.arange(1 << (r + c), dtype=np.int64)[None, :]
+    block = np.arange(1 << (k - r - c), dtype=np.int64)[:, None]
+    idx = (u & ((1 << low) - 1)) | ((u >> low) << s0)
+    return idx | ((block & ((1 << mid) - 1)) << low) | ((block >> mid) << top)
 
 
 class NttTables:
@@ -189,13 +238,30 @@ def _device_kind(*ts) -> str:
     return dev.type
 
 
-def _stages(x: torch.Tensor, tw: torch.Tensor, k: int, dif: bool, counter) -> None:
+def _passes(x: torch.Tensor, tw: torch.Tensor, k: int, dif: bool, counter, scale=None) -> None:
+    """One launch a pass of `pass_plan(k)`: upward for K3, downward for K4,
+    whose last pass (s0 = 0) multiplies by `scale` as it stores."""
     lib = build.load_library()
     stream = build.stream_ptr(x.device)
-    for s in range(k - 1, -1, -1) if dif else range(k):
-        rc = lib.h2a_ntt_stage(x.data_ptr(), tw.data_ptr(), x.shape[0], k, s, int(dif), stream)
-        build.check(rc, "h2a_ntt_stage")
+    plan = pass_plan(k)
+    for s0, r in reversed(plan) if dif else plan:
+        factor = scale.data_ptr() if scale is not None and s0 == 0 else None
+        rc = lib.h2a_ntt_pass(x.data_ptr(), tw.data_ptr(), factor, x.shape[0], k, s0, r, int(dif), stream)
+        build.check(rc, "h2a_ntt_pass")
         counter.launches += 1
+
+
+def pass_occupancy(dif: bool, k: int) -> dict:
+    """What the runtime says of the widest pass of a size-2^k transform on
+    the current card: shared memory a block, blocks of `PASS_THREADS`
+    threads an SM, SMs."""
+    s0, r = max(pass_plan(k), key=lambda p: p[1] + pass_chunk_bits(k, *p))
+    tile_bytes = (NL * 4) << (r + pass_chunk_bits(k, s0, r))
+    blocks, sms = ctypes.c_int(0), ctypes.c_int(0)
+    rc = build.load_library().h2a_ntt_occupancy(int(dif), tile_bytes, ctypes.byref(blocks), ctypes.byref(sms))
+    build.check(rc, "h2a_ntt_occupancy")
+    return {"tile_bytes": tile_bytes, "threads_a_block": PASS_THREADS, "blocks_per_sm": blocks.value,
+            "sms": sms.value}
 
 
 def ntt_batched(x: torch.Tensor, tw: torch.Tensor) -> torch.Tensor:
@@ -205,7 +271,7 @@ def ntt_batched(x: torch.Tensor, tw: torch.Tensor) -> torch.Tensor:
     k = _check_stack(x, tw)
     if _device_kind(x, tw) == "cpu":
         return x.copy_(ntt_plain(x, tw))
-    _stages(x, tw, k, dif=False, counter=ntt_batched)
+    _passes(x, tw, k, dif=False, counter=ntt_batched)
     return x
 
 
@@ -217,8 +283,8 @@ def intt_batched(x: torch.Tensor, tw_inv: torch.Tensor, n_inv: torch.Tensor) -> 
     _check(n_inv, "n_inv", (NL,))
     if _device_kind(x, tw_inv, n_inv) == "cpu":
         return x.copy_(intt_plain(x, tw_inv, n_inv))
-    _stages(x, tw_inv, k, dif=True, counter=intt_batched)
-    return ew_mul_scalar(x, n_inv, out=x)
+    _passes(x, tw_inv, k, dif=True, counter=intt_batched, scale=n_inv)
+    return x
 
 
 def ew_mul_col(x: torch.Tensor, col: torch.Tensor, out: torch.Tensor = None) -> torch.Tensor:

@@ -7,12 +7,15 @@ on its eval-fed path, the one `create_proof_native` uses:
   host                                      device
   ----                                      ------
   natural-order mont evaluations  --H2D-->  slot of the (C, n, 8) stack
-  (feed_evals, one column at a time)        finalize: K4 (DIF INTT) once;
-                                            bit-reversed coefficients stay
+  (feed_evals, one column at a time)        finalize: K4 (DIF INTT) once, in
+                                            ceil(k / 7) fused passes, the last
+                                            times 1/n; bit-reversed
+                                            coefficients stay
                                           per coset (run_coset):
                                             K5 pow_series(shift), bit-reversed
                                             K5 column product -> second stack
-                                            K3 (DIT NTT) -> natural-order evals
+                                            K3 (DIT NTT), ceil(k / 7) fused
+                                            passes -> natural-order evals
                                             K5 x_i = shift * omega^i
                                             K6 quotient numerator per row
   h coset evaluations (n, 4) u64  <--D2H--  (n, 8)

@@ -1,7 +1,7 @@
 """The kernels' arithmetic on the host: g++ builds `csrc/field.cuh`,
 `curve.cuh` (with the mixed add), K1's and K8's lane functions, the tape
-interpreter of K2 and K6, the NTT butterflies, stage index maps and
-power-series element of K3-K5 (`ntt.cuh`), and the per-thread sort, walk,
+interpreter of K2 and K6, the NTT butterflies, stage index maps, fused
+passes and power-series element of K3-K5 (`ntt.cuh`), and the per-thread sort, walk,
 fold and Horner of K7 and K9 (`msm.cuh`) through `csrc/host_shim.cpp`, and
 each is checked against its plain PyTorch version, exactly (points as
 affine points)."""
@@ -54,6 +54,47 @@ def test_mont_mul(lib, field):
     out = torch.empty_like(a)
     lib.h2a_host_mont_mul(int(field == "Fr"), _ptr(a), _ptr(b), _ptr(out), len(xs))
     assert torch.equal(out, fo.mont_mul(a, b, spec))
+
+
+@pytest.mark.parametrize("field", ["Fq", "Fr"])
+def test_mont_mul_carry_chain(lib, field):
+    """`fe_mul_cc`, the product the card runs (carries in the flag, two
+    8-limb accumulators), with the flag kept in a variable: equal to the
+    portable CIOS and to the plain product on every pair of the edge values
+    and on random pairs."""
+    spec, p = (fo.FQ, Q) if field == "Fq" else (fo.FR, R)
+    rng = np.random.default_rng(0xCC + len(field))
+    edge = [0, 1, 2, p - 1, p - 2, (1 << 256) % p, (1 << 253) - 1, 1 << 253, (1 << 32) - 1, 1 << 32]
+    rnd = [int.from_bytes(rng.bytes(40), "little") % p for _ in range(4000)]
+    xs = [u for u in edge for _ in edge] + rnd[:2000]
+    ys = [v for _ in edge for v in edge] + rnd[2000:]
+    a, b = ints_to_tensor(xs, "cpu"), ints_to_tensor(ys, "cpu")
+    chain, portable = torch.empty_like(a), torch.empty_like(a)
+    lib.h2a_host_mont_mul_cc(int(field == "Fr"), _ptr(a), _ptr(b), _ptr(chain), len(xs))
+    lib.h2a_host_mont_mul(int(field == "Fr"), _ptr(a), _ptr(b), _ptr(portable), len(xs))
+    assert torch.equal(chain, portable)
+    assert torch.equal(chain, fo.mont_mul(a, b, spec))
+
+
+@pytest.mark.parametrize("field", ["Fq", "Fr"])
+def test_add_sub_carry_chain(lib, field):
+    """`fe_add_cc` and `fe_sub_cc`, the sum and difference the card runs on
+    the carry flag, equal the portable forms and the plain versions on
+    every pair of the edge values and on random pairs."""
+    spec, p = (fo.FQ, Q) if field == "Fq" else (fo.FR, R)
+    rng = np.random.default_rng(0xADD + len(field))
+    edge = [0, 1, p - 1, p - 2, (p - 1) // 2, (p + 1) // 2, (1 << 253) - 1, 1 << 253, (1 << 32) - 1, 1 << 32]
+    rnd = [int.from_bytes(rng.bytes(40), "little") % p for _ in range(2000)]
+    xs = [u for u in edge for _ in edge] + rnd[:1000]
+    ys = [v for _ in edge for v in edge] + rnd[1000:]
+    a, b = ints_to_tensor(xs, "cpu"), ints_to_tensor(ys, "cpu")
+    out = {cc: (torch.empty_like(a), torch.empty_like(a)) for cc in (0, 1)}
+    for cc, (total, diff) in out.items():
+        lib.h2a_host_add_sub(int(field == "Fr"), cc, _ptr(a), _ptr(b), _ptr(total), _ptr(diff), len(xs))
+    assert torch.equal(out[1][0], out[0][0]) and torch.equal(out[1][1], out[0][1])
+    assert torch.equal(out[1][0], fo.add(a, b, spec)) and torch.equal(out[1][1], fo.sub(a, b, spec))
+    assert tensor_to_ints(out[1][0]) == [(x + y) % p for x, y in zip(xs, ys)]
+    assert tensor_to_ints(out[1][1]) == [(x - y) % p for x, y in zip(xs, ys)]
 
 
 def test_jac_add_edge_cases(lib):
@@ -121,7 +162,8 @@ def _rand_stack(rng, c, n) -> torch.Tensor:
 
 def test_ntt_stages(lib):
     """A full k = 7 NTT and INTT through the host-built butterflies and
-    stage index maps, stage by stage as the CUDA wrappers launch them."""
+    stage index maps, one stage at a time (the reference that
+    `test_ntt_fused_passes` holds the kernels' passes to)."""
     from halo2_aggregation_tpu_torch.ops import ntt as nt
 
     k, cols = 7, 3
@@ -142,6 +184,66 @@ def test_ntt_stages(lib):
         lo, hi, tw = nt.stage_pairs(k, s, "cpu")
         assert sorted(torch.cat([lo, hi]).tolist()) == list(range(1 << k))
         assert int(tw.max()) < (1 << (k - 1))
+
+
+@pytest.mark.parametrize("dif", [False, True], ids=["dit", "dif"])
+@pytest.mark.parametrize("k", [1, 2, 5, 7, 8, 11, 13, 14])
+def test_ntt_fused_passes(lib, k, dif):
+    """K3's and K4's fused passes through the host build of the tile code
+    (one pass, ragged r, three passes; the DIF with its folded 1/n) equal
+    the stage-by-stage transform and the plain version bit for bit."""
+    from halo2_aggregation_tpu_torch.ops import ntt as nt
+
+    cols = 2
+    tables = nt.NttTables(k, "cpu")
+    x = _rand_stack(np.random.default_rng(1000 + k), cols, 1 << k)
+    tw = tables.inv if dif else tables.fwd
+    plan = nt.pass_plan(k)
+    fused = x.clone()
+    for s0, r in reversed(plan) if dif else plan:
+        scale = _ptr(tables.n_inv) if dif and s0 == 0 else None
+        run = lib.h2a_host_ntt_pass(_ptr(fused), _ptr(tw), scale, cols, k, s0, r, int(dif))
+        assert run == 1 << nt.pass_chunk_bits(k, s0, r)
+    staged = x.clone()
+    for s in range(k - 1, -1, -1) if dif else range(k):
+        lib.h2a_host_ntt_stage(_ptr(staged), _ptr(tw), cols, k, s, int(dif))
+    if dif:
+        ninv = tables.n_inv.expand_as(staged).contiguous()
+        lib.h2a_host_mont_mul(1, _ptr(staged), _ptr(ninv), _ptr(staged), staged.numel() // 8)
+    assert torch.equal(fused, staged)
+    want = nt.intt_plain(x, tw, tables.n_inv) if dif else nt.ntt_plain(x, tw)
+    assert torch.equal(fused, want)
+
+
+@pytest.mark.parametrize("k", range(1, 25))
+def test_ntt_pass_plan(lib, k):
+    """`pass_plan(k)` covers every stage once, in order, in ceil(k / R_MAX)
+    passes of at most R_MAX stages; each pass's slot -> element map is a
+    bijection with runs of 2^c neighbours, and the kernel's map
+    (`ntt_tile_index`) equals its Python mirror."""
+    from halo2_aggregation_tpu_torch.ops import ntt as nt
+
+    plan = nt.pass_plan(k)
+    assert len(plan) == -(-k // nt.R_MAX)
+    assert [s for s0, r in plan for s in range(s0, s0 + r)] == list(range(k))
+    sizes = [r for _, r in plan]
+    assert 1 <= min(sizes) and max(sizes) <= nt.R_MAX and max(sizes) - min(sizes) <= 1
+    for s0, r in plan:
+        c = nt.pass_chunk_bits(k, s0, r)
+        assert 0 <= c <= nt.C_MAX and r + c <= k and (c == nt.C_MAX or k - r < nt.C_MAX or 0 < s0 < nt.C_MAX)
+        if k > 20:
+            continue  # the maps below are 2^k entries each
+        idx = nt.tile_indices(k, s0, r)
+        assert idx.shape == (1 << (k - r - c), 1 << (r + c))
+        assert np.array_equal(np.sort(idx.ravel()), np.arange(1 << k))
+        # a tile's elements agree outside the pass's bits and its run's
+        group = ((1 << r) - 1) << s0 | ((1 << c) - 1 if s0 else ((1 << (r + c)) - 1))
+        assert ((idx & ~group) == (idx[:, :1] & ~group)).all()
+        runs = idx.reshape(-1, 1 << c)
+        assert (runs == runs[:, :1] + np.arange(1 << c)).all()
+        got = torch.empty(1 << k, dtype=torch.int32)
+        lib.h2a_host_ntt_tile_indices(k, s0, r, _ptr(got))
+        assert np.array_equal(got.numpy().astype(np.int64), idx.ravel())
 
 
 @pytest.mark.parametrize("bitrev", [False, True])

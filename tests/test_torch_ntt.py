@@ -5,7 +5,8 @@ exactly: canonical Montgomery bytes.  This is how the JAX package holds its
 Pallas NTT on the CPU (`tests/test_ntt_pallas.py` against `_ntt_core`).
 The JAX transforms compile once per k (seconds to tens of seconds each on
 the CPU), so they are compared at k = 7 and 8; the native engine at every
-k."""
+k (k = 8 and 11 are two-pass plans of the fused kernels, 4 + 4 and 6 + 5
+stages; the passes themselves run in `tests/test_torch_host_core.py`)."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -41,7 +42,7 @@ def counters():
     return [f.launches for f in (nt.ntt_batched, nt.intt_batched, nt.ew_mul_col, nt.ew_mul_scalar, nt.pow_series)]
 
 
-@pytest.mark.parametrize("k", [7, 8, 9, 10])
+@pytest.mark.parametrize("k", [7, 8, 9, 10, 11])
 def test_transforms_match_jax_and_native(k):
     rng = np.random.default_rng(k)
     n = 1 << k
