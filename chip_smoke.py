@@ -16,20 +16,29 @@ Phases (each prints on its own lines; any failure raises and exits
 nonzero before the last line):
   0. card and versions (`nvidia-smi` name and power limit, torch, CUDA);
   1. kernel build (nvcc), timed, with ptxas' register and spill report;
-  2. K1 (windowed scalar-mul) at the main path's 4,608 lanes against its
-     plain version (affine equality), 16 lanes against the oracle, and a
-     ragged lane count against the full launch; K8 (bit-serial ladder) on
-     the same lanes at 256 bits against K1 and its plain version, and
-     ragged against full;
-  3. K2 (field-algebra tape) on a real B = 128 batch against its plain
-     version (bit for bit), 8 lanes against the host IntOps formulas, and
-     a ragged batch against the full launch;
+  2. the latency of one dependent Montgomery product (one warp an SM,
+     10,000 products in series, Fq and Fr), checked against host integers;
+     K1 (windowed scalar-mul, each lane split in two halves over two
+     threads) at the main path's 4,608 lanes against its plain version
+     (affine equality), 16 lanes against the oracle, a ragged lane count
+     against the full launch at two block shapes, and 2^17 lanes against K8
+     on the same lanes and the oracle on a sample; K8 (bit-serial ladder) on
+     the 4,608 lanes at 256 bits against K1 and its plain version, and
+     ragged against full; the segmented Jacobian sum at the main path's
+     shape (128 proofs, segments of 4, 4, 27 and 1 lanes) and at ragged
+     segment lengths in both layouts against its plain version (affine
+     equality);
+  3. K2 (field-algebra tape with the e-lane's scalar, one inversion a lane)
+     on a real B = 128 batch against its plain version (bit for bit), 8
+     lanes against the host IntOps formulas, a ragged batch against the full
+     launch, and the three-output tape against the first three outputs;
   4. the main path: result True, quads equal the host `verify_proof`, a
-     tampered proof and a wrong public input rejected, both kernels
+     tampered proof and a wrong public input rejected, all three kernels
      launched by the main path, median of 5 wall times, the stage split and
      peak device memory; once more with method="ladder" (K8), with the
      same quads; then one run under torch.profiler for the device's busy
-     share and its kernels by name;
+     share, its events and its kernels by name, and the events of each
+     piece of the device step;
   5. ntt: the device's Montgomery product alone on 2^20 random pairs and
      the edge values, for Fq and Fr, against the plain PyTorch product; K3
      and K4 at k = 1, 5, 9, 13 and 16 on 2 random columns and K4, K5 and K3
@@ -60,7 +69,9 @@ nonzero before the last line):
      launched during the prove.
 Then one JSON line with the kernels' numbers (each with its launches on its
 path, its time, its plain version's time, its bound and `library_ms`: null,
-as no PyTorch call computes 256-bit modular arithmetic), and as the last line
+as no PyTorch call computes 256-bit modular arithmetic; the lane-serial
+kernels also with their chain time, the dependent products of one thread
+times the measured latency of one), and as the last line
 {"ok": true, "device": {...}}.  Exits nonzero, printing no result, when no
 CUDA device is visible.
 """
@@ -95,13 +106,17 @@ def emit(obj) -> None:
 
 
 def cuda_ms(fn, reps: int) -> float:
-    """Mean milliseconds per call of `fn` on the card (CUDA events)."""
+    """Mean milliseconds per call of `fn` on the card (CUDA events).  The
+    stream first spins for some 10 ms, so that the calls queue up behind it
+    and run back to back: a kernel of tens of microseconds is then timed by
+    the card, not by how fast this host launches."""
     import torch
 
     fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(20_000_000)
     start.record()
     for _ in range(reps):
         fn()
@@ -139,15 +154,30 @@ def bound(products: int, nbytes: int) -> dict:
     }
 
 
+def inv_products(p: int) -> int:
+    """Montgomery products of one inversion (csrc/field.cuh::fe_inv): the 8
+    of the odd powers' table, a squaring a bit of p - 2 below bit 254, and
+    a product a window of the same sliding 4-bit scan."""
+    e, n, bit = p - 2, 8, 253
+    while bit >= 0:
+        if not (e >> bit) & 1:
+            n, bit = n + 1, bit - 1
+            continue
+        lo = max(bit - 3, 0)
+        while not (e >> lo) & 1:
+            lo += 1
+        n, bit = n + (bit - lo + 1) + 1, lo - 1
+    return n
+
+
 def tape_products(tape) -> int:
     """Montgomery products one lane of a tape needs (K2, K6): one a MUL,
-    and a Fermat inversion's 254 squarings plus a product per set bit of
-    r - 2 (csrc/field.cuh::fe_inv)."""
+    and those of an inversion an INV."""
     from halo2_aggregation_tpu_torch.fields import R
     from halo2_aggregation_tpu_torch.plonk.protocol_ops import OP_INV, OP_MUL
 
     ops = tape.instrs[:, 0]
-    return int((ops == OP_MUL).sum()) + int((ops == OP_INV).sum()) * (254 + bin(R - 2).count("1"))
+    return int((ops == OP_MUL).sum()) + int((ops == OP_INV).sum()) * inv_products(R)
 
 
 def max_abs_err(a: list, b: list) -> int:
@@ -159,6 +189,40 @@ def max_abs_err(a: list, b: list) -> int:
         if p is not None:
             err = max(err, abs(p[0] - q[0]), abs(p[1] - q[1]))
     return err
+
+
+def latency_probe(device) -> dict:
+    """Nanoseconds a dependent `fe_mul` (csrc/ew.cu::mul_chain_kernel): one
+    warp on every SM runs 10,000 products in series, each waiting for the
+    one before; the result is held to a * (b / 2^256)^iters on host ints."""
+    import numpy as np
+    import torch
+
+    from halo2_aggregation_tpu_torch.fields import Q, R
+    from halo2_aggregation_tpu_torch.ops import build
+    from halo2_aggregation_tpu_torch.ops.limbs import ints_to_tensor, tensor_to_ints
+
+    lib = build.load_library()
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    iters, n = 10_000, sms * 32
+    rng = np.random.default_rng(SEED + 7)
+    out = {"phase": "latency", "blocks_of_one_warp": sms, "dependent_products": iters}
+    for field, (name, p) in enumerate((("Fq", Q), ("Fr", R))):
+        xs, ys = ([int.from_bytes(rng.bytes(40), "little") % p for _ in range(n)] for _ in range(2))
+        a, b = ints_to_tensor(xs, device), ints_to_tensor(ys, device)
+        got = torch.empty_like(a)
+
+        def run():
+            build.check(lib.h2a_mul_chain(field, a.data_ptr(), b.data_ptr(), got.data_ptr(), sms, iters,
+                                          build.stream_ptr(device)), "h2a_mul_chain")
+
+        ms = cuda_ms(run, reps=5)
+        rinv = pow(1 << 256, -1, p)
+        if tensor_to_ints(got) != [x * pow(y * rinv, iters, p) % p for x, y in zip(xs, ys)]:
+            raise AssertionError(f"mul_chain<{name}> != a (b / 2^256)^{iters} on host ints")
+        out[f"{name}_ns"] = ms * 1e6 / iters
+    emit(out)
+    return out
 
 
 def phase_card():
@@ -194,10 +258,14 @@ def phase_build():
 def k1_lanes(n: int, rng):
     """n lanes of (point, plain scalar): random multiples of G with random
     scalars < r, and mixed in: identity points, zero scalars, scalars 1,
-    r - 1 and 2^256 - 1, and scalars whose ladder adds acc == +-table[d]
-    (the doubling and cancelling cases of jac_add)."""
+    r - 1, r, r + 1 and 2^256 - 1, the old ladder's doubling cases, and
+    scalars 2 a (mod r) for a short lattice vector (a, b), whose halves
+    (a, -b) give the same point, so that K1's last add doubles.  Returns
+    the lanes and how many of them meet in that doubling."""
     from halo2_aggregation_tpu_torch.fields import R
+    from halo2_aggregation_tpu_torch.ops.ec_kernels import glv_split
     from halo2_aggregation_tpu_torch.oracle import curve as oc
+    from halo2_aggregation_tpu_torch.oracle import glv
     from halo2_aggregation_tpu_torch.utils import native
 
     if not native.available():
@@ -205,8 +273,8 @@ def k1_lanes(n: int, rng):
     g = oc.g1_generator()
     pts = native.g1_batch_mul(g, [int.from_bytes(rng.bytes(32), "little") % R for _ in range(n)])
     ks = [int.from_bytes(rng.bytes(32), "little") % R for _ in range(n)]
-    # last window d with 16 * prefix == +-d (mod r): the final add meets
-    # acc == d*P (doubling) or acc == -d*P (identity)
+    # last window d with 16 * prefix == +-d (mod r): a 64-window ladder's
+    # final add meets acc == d*P (doubling) or acc == -d*P (identity)
     inv16 = pow(16, -1, R)
     special = []
     for d in range(1, 16):
@@ -214,18 +282,51 @@ def k1_lanes(n: int, rng):
             prefix = sign * d * inv16 % R
             if prefix < 1 << 252:
                 special.append(16 * prefix + d)
-    edge = [0, 1, R - 1, (1 << 256) - 1] + special
+    meet = [sign * 2 * v[0] % R for v in (glv._V1, glv._V2) for sign in (1, -1)]
+    edge = [0, 1, R - 1, (1 << 256) - 1, R, R + 1] + meet + special
     for i, k in enumerate(edge):
         ks[1 + 7 * i] = k
     for i in range(0, n, 97):
         pts[i] = None  # identity points
-    return pts, ks, len(special)
+    doubling = 0
+    for p, k in zip(pts, ks):
+        s1, s2 = glv_split(k)
+        doubling += p is not None and s1 != 0 and (s1 - s2 * glv.LAMBDA) % R == 0
+    if doubling < 1:
+        raise AssertionError("no lane's halves meet in the doubling branch of K1's last add")
+    return pts, ks, doubling
+
+
+def k1_products(pts, ks) -> int:
+    """Montgomery products K1 needs for these lanes: a half is its table (4
+    doublings, 3 adds), 32 x 4 doublings and an add for every nonzero
+    signed digit but the first (the identity absorbs that one, and every
+    add of an identity point); a lane is two halves, the product by beta
+    and the add of the two where neither is the identity."""
+    from halo2_aggregation_tpu_torch.ops.ec_kernels import glv_split
+
+    eights = int("8" * 33, 16)  # |half| + 0x88..8 has nibbles digit + 8
+    products = len(pts) * 2 * (4 + 128) * P_DOUBLE
+    for p, k in zip(pts, ks):
+        if p is None:
+            continue
+        halves = glv_split(k)
+        adds = sum(max(0, sum(1 for w in range(33) if ((abs(h) + eights) >> (4 * w)) & 15 != 8) - 1)
+                   for h in halves)
+        products += 1 + (2 * 3 + adds + all(halves)) * P_ADD
+    return products
+
+
+# the dependent products of one K1 thread: the table, 32 x 4 doublings, 33
+# window adds, the product by beta, the last add
+K1_CHAIN = 4 * P_DOUBLE + 3 * P_ADD + 128 * P_DOUBLE + 33 * P_ADD + 1 + P_ADD
 
 
 def phase_k1(device):
     import numpy as np
     import torch
 
+    from halo2_aggregation_tpu_torch.fields import R
     from halo2_aggregation_tpu_torch.ops import curve_ops as co
     from halo2_aggregation_tpu_torch.ops.ec_kernels import scalar_mul_win
     from halo2_aggregation_tpu_torch.ops.limbs import ints_to_tensor
@@ -233,15 +334,17 @@ def phase_k1(device):
 
     n = B * 36  # the main path's lanes: 35 multiopen lanes + the e-lane
     rng = np.random.default_rng(SEED)
-    pts, ks, n_special = k1_lanes(n, rng)
+    pts, ks, n_doubling = k1_lanes(n, rng)
     P = co.affine_to_jac(co.affine_from_ints(pts, device))
     s = ints_to_tensor(ks, device)
     out = scalar_mul_win(P, s)
-    # a ragged lane count (not a multiple of the block) gives the same lanes
+    # a ragged lane count (not a multiple of the block) gives the same
+    # lanes, at the block the launcher chooses and at two it is told
     m = n - 5
-    ragged = scalar_mul_win(co.JacPoint(*(c[:m] for c in P)), s[:m])
-    if not all(torch.equal(a, b[:m]) for a, b in zip(ragged, out)):
-        raise AssertionError("K1 on a ragged lane count != the full launch")
+    for threads in (0, 32, 128):
+        ragged = scalar_mul_win(co.JacPoint(*(c[:m].contiguous() for c in P)), s[:m].contiguous(), threads)
+        if not all(torch.equal(a, b[:m]) for a, b in zip(ragged, out)):
+            raise AssertionError(f"K1 on a ragged lane count (block {threads}) != the full launch")
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     ref = co.scalar_mul(P, s)
@@ -252,7 +355,7 @@ def phase_k1(device):
     if got != want:
         bad = [i for i, (a, b) in enumerate(zip(got, want)) if a != b]
         raise AssertionError(f"K1 != plain on {len(bad)} lanes, first {bad[:8]}")
-    zero_ok = all(got[i] is None for i in range(n) if pts[i] is None or ks[i] == 0)
+    zero_ok = all(got[i] is None for i in range(n) if pts[i] is None or ks[i] % R == 0)
     if not zero_ok:
         raise AssertionError("K1: zero scalar or identity point did not give the identity")
     idx = list(range(16))
@@ -260,23 +363,65 @@ def phase_k1(device):
     if [got[i] for i in idx] != oracle:
         raise AssertionError("K1 != oracle g1_mul on the first 16 lanes")
     ms = cuda_ms(lambda: scalar_mul_win(P, s), reps=5)
-    # a lane: the table (7 doublings, 7 adds), 63 x 4 doublings, and an add
-    # for every nonzero window but the first (the identity absorbs that one
-    # and every add of an identity point)
-    live = [k for p, k in zip(pts, ks) if p is not None]
-    adds = sum(max(0, sum(1 for w in range(64) if (k >> (4 * w)) & 15) - 1) for k in live)
-    products = n * (7 + 252) * P_DOUBLE + len(live) * 7 * P_ADD + adds * P_ADD
     rec = {
         "name": "ec_win", "route": "cuda",
         "source": "halo2_aggregation_tpu_torch/csrc/ec_win.cu",
         "replaces": "halo2_aggregation_tpu/ops/ec_pallas.py:354",
-        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **bound(products, n * 32 * (3 + 1 + 3)),
+        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+        **bound(k1_products(pts, ks), n * 32 * (3 + 1 + 3)),
+        "chain_products": K1_CHAIN, "chain_field": "Fq",
     }
+    k8 = phase_k8(P, s, got, pts, ks)
+    rec.update(k1_large_launch(device, P, pts, rng))
     emit({
-        "phase": "k1", "lanes": n, "doubling_cases": n_special, "oracle_lanes": 16,
-        "tolerance": "exact: equal affine points", **rec,
+        "phase": "k1", "lanes": n, "doubling_cases": n_doubling, "oracle_lanes": 16,
+        "ragged_blocks": [0, 32, 128], "tolerance": "exact: equal affine points", **rec,
     })
-    return rec, phase_k8(P, s, got, pts, ks)
+    return rec, k8, out
+
+
+def k1_large_launch(device, P, pts, rng, log_n: int = 17) -> dict:
+    """K1 at 2^log_n lanes (the 4,608 points repeated, fresh random
+    scalars below 2^256), where the launcher takes the occupancy call's
+    block: every lane equal to K8's over 256 bits as a group element, and a
+    sample equal to the oracle."""
+    import numpy as np
+    import torch
+
+    from halo2_aggregation_tpu_torch.fields import R
+    from halo2_aggregation_tpu_torch.ops import curve_ops as co
+    from halo2_aggregation_tpu_torch.ops.ec_kernels import scalar_mul_ladder, scalar_mul_win
+    from halo2_aggregation_tpu_torch.ops.limbs import tensor_to_ints
+    from halo2_aggregation_tpu_torch.oracle import curve as oc
+
+    n = 1 << log_n
+    idx = torch.arange(n, device=device) % P.x.shape[0]
+    big = co.JacPoint(*(c[idx].contiguous() for c in P))
+    raw = rng.integers(0, 1 << 32, size=(n, 8), dtype=np.uint64).astype(np.uint32)
+    s = torch.from_numpy(raw.view(np.int32)).to(device)
+    out = scalar_mul_win(big, s)
+    ref = scalar_mul_ladder(big, s, 256)
+    same = co.jac_eq(out, ref)
+    if not bool(same.all()):
+        raise AssertionError(f"K1 != K8 on {int((~same).sum())} of 2^{log_n} lanes, "
+                             f"first {(~same).nonzero()[:8].flatten().tolist()}")
+    sample = [int(i) for i in rng.integers(0, n, size=8)]
+    pick = torch.tensor(sample, device=device)
+    got = co.jac_to_ints(co.JacPoint(*(c[pick] for c in out)))
+    ks = tensor_to_ints(s[pick].cpu())
+    want = [oc.g1_mul(pts[i % len(pts)], k % R) if pts[i % len(pts)] is not None else None
+            for i, k in zip(sample, ks)]
+    if got != want:
+        raise AssertionError(f"K1 at 2^{log_n} lanes != oracle g1_mul on the sampled lanes {sample}")
+    key = "2^%d" % log_n
+    # nearly every digit of a random half is nonzero: count them all
+    products = n * (2 * ((4 + 128) * P_DOUBLE + (3 + 32) * P_ADD) + 1 + P_ADD)
+    return {
+        "ms_at_" + key: cuda_ms(lambda: scalar_mul_win(big, s), reps=2),
+        "bound_ms_at_" + key: bound(products, n * 32 * 7)["bound_ms"],
+        "ladder_ms_at_" + key: cuda_ms(lambda: scalar_mul_ladder(big, s, 256), reps=2),
+        "equal_to_k8_at_" + key: True, "oracle_lanes_at_" + key: len(sample),
+    }
 
 
 def phase_k8(P, s, k1_affine, pts, ks):
@@ -310,9 +455,95 @@ def phase_k8(P, s, k1_affine, pts, ks):
         "replaces": "halo2_aggregation_tpu/ops/ec_pallas.py:317",
         "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
         **bound(n * 256 * P_DOUBLE + adds * P_ADD, n * 32 * (3 + 1 + 3)),
+        # a warp pays the add of a round as soon as one of its lanes has the bit
+        "chain_products": 256 * (P_DOUBLE + P_ADD), "chain_field": "Fq",
     }
     emit({"phase": "k8", "lanes": n, "nbits": 256, "equal_to_k1": True,
           "tolerance": "exact: equal affine points", **rec})
+    return rec
+
+
+MAIN_OFFSETS = [0, 4, 8, 35, 36]  # a proof's lanes: w, zw, f and the e-lane
+
+
+def segment_adds(p, offsets, lane_axis: int) -> int:
+    """The adds a segmented sum needs on these lanes: in every (batch
+    element, segment), one for every point that is not the identity but
+    the first."""
+    live = (p.z != 0).any(-1).movedim(lane_axis, 0)
+    adds = 0
+    for lo, hi in zip(offsets, offsets[1:]):
+        adds += int((live[lo:hi].sum(0) - 1).clamp(min=0).sum())
+    return adds
+
+
+def phase_jac_sum(device, k1_out):
+    """The segmented Jacobian sum (csrc/jac_sum.cu) against its plain
+    version as affine points: at the main path's shape on K1's output
+    lanes, and at ragged segment lengths (0, 1, 31, 32, 33, 70 and 33) in
+    both layouts, with a point twice in one thread's run and across the
+    tree (doubling) and a point beside its negation (cancelling)."""
+    import torch
+
+    from halo2_aggregation_tpu_torch.ops import curve_ops as co
+    from halo2_aggregation_tpu_torch.ops import field_ops as fo
+    from halo2_aggregation_tpu_torch.ops.ec_kernels import jac_segment_sum
+
+    def affine(p):
+        return co.jac_to_ints(co.JacPoint(*(c.reshape(-1, 8) for c in p)))
+
+    lanes = MAIN_OFFSETS[-1]
+    P = co.JacPoint(*(c.reshape(B, lanes, 8) for c in k1_out))
+    out = jac_segment_sum(P, MAIN_OFFSETS, lane_axis=1)
+    ref, plain_ms = host_ms(lambda: co.jac_segment_sum(P, MAIN_OFFSETS, lane_axis=1))
+    got, want = affine(out), affine(ref)
+    if got != want:
+        bad = [i for i, (a, b) in enumerate(zip(got, want)) if a != b]
+        raise AssertionError(f"segmented sum != plain on {len(bad)} of {len(got)} sums, first {bad[:8]}")
+    err = max_abs_err(got, want)
+    # a ragged batch gives the same sums
+    m = B - 3
+    ragged = jac_segment_sum(co.JacPoint(*(c[:m] for c in P)), MAIN_OFFSETS, lane_axis=1)
+    if not all(torch.equal(a, b[:, :m]) for a, b in zip(ragged, out)):
+        raise AssertionError("segmented sum on a ragged batch != the full launch")
+
+    lens = [0, 1, 31, 32, 33, 70, 33]
+    offsets = [0]
+    for ln in lens:
+        offsets.append(offsets[-1] + ln)
+    M, Bn = offsets[-1], 5
+    Q = co.JacPoint(*(c[: M * Bn].reshape(M, Bn, 8).clone() for c in k1_out))  # lanes first
+    o32, o33, o70 = offsets[3], offsets[4], offsets[5]
+    for dst, src, negate in ((o33 + 32, o33, False), (o32 + 17, o32 + 1, False),
+                             (o32 + 18, o32 + 2, True), (o70 + 37, o70 + 5, True)):
+        for c, name in zip(Q, "xyz"):
+            c[dst] = fo.neg(c[src], fo.FQ) if negate and name == "y" else c[src]
+    want = affine(co.jac_segment_sum(Q, offsets, lane_axis=0))
+    if want[:Bn] != [None] * Bn:
+        raise AssertionError("the plain segmented sum of an empty segment is not the identity")
+    layouts = {"lanes_first": (Q, 0), "batch_first_view": (co.JacPoint(*(c.transpose(0, 1) for c in Q)), 1),
+               "batch_first": (co.JacPoint(*(c.transpose(0, 1).contiguous() for c in Q)), 1)}
+    for name, (pts, axis) in layouts.items():
+        if affine(jac_segment_sum(pts, offsets, lane_axis=axis)) != want:
+            raise AssertionError(f"segmented sum != plain at ragged segment lengths, layout {name}")
+
+    ms = cuda_ms(lambda: jac_segment_sum(P, MAIN_OFFSETS, lane_axis=1), reps=100)
+    adds = segment_adds(P, MAIN_OFFSETS, 1)
+    rec = {
+        "name": "jac_segment_sum", "route": "cuda",
+        "source": "halo2_aggregation_tpu_torch/csrc/jac_sum.cu",
+        # a lax.scan inside the jitted device step, not a Pallas kernel
+        "replaces": "halo2_aggregation_tpu/ops/curve_ops.py:233",
+        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+        **bound(adds * P_ADD, (B * lanes + B * (len(MAIN_OFFSETS) - 1)) * 96 + len(MAIN_OFFSETS) * 4),
+        # a thread's first point is free; then the five levels of the tree
+        "chain_products": 5 * P_ADD, "chain_field": "Fq",
+    }
+    emit({
+        "phase": "jac_sum", "batch": B, "offsets": MAIN_OFFSETS, "adds": adds,
+        "ragged_segment_lengths": lens, "ragged_layouts": list(layouts),
+        "tolerance": "exact: equal affine points", **rec,
+    })
     return rec
 
 
@@ -340,20 +571,28 @@ def phase_k2(params, vk, protos, device):
 
     from halo2_aggregation_tpu_torch.ops import field_ops as fo
     from halo2_aggregation_tpu_torch.plonk import fa_fused as ff
-    from halo2_aggregation_tpu_torch.plonk.protocol_ops import IntInvOps
+    from halo2_aggregation_tpu_torch.plonk.protocol_ops import OP_INV, IntInvOps
     from halo2_aggregation_tpu_torch.plonk.verifier import parse_proof
-    from halo2_aggregation_tpu_torch.plonk.verifier_device import batch_proofs
+    from halo2_aggregation_tpu_torch.plonk.verifier_device import batch_proofs, fast_prep_gathered
 
     comms = [[params.commit_lagrange(col) for col in insts] for insts, _ in protos]
     parsed = [parse_proof(vk, comms[i % 4], protos[i % 4][1]) for i in range(B)]
     batch = batch_proofs(vk, parsed, device)
-    tape = ff.fa_tape(vk)
-    inputs = torch.stack(ff.fa_gather(vk, batch)).contiguous()
+    _, _, h_coeff, known = fast_prep_gathered(vk, parsed, device)
+    tape = ff.fa_tape(vk, e_scalar=True)  # the main path's: with the e-lane's scalar
+    inversions = int((tape.instrs[:, 0] == OP_INV).sum())
+    if inversions != 1:
+        raise AssertionError(f"K2's tape holds {inversions} inversions, expected one")
+    cols = ff.fa_gather(vk, batch) + [h_coeff, known]
+    inputs = torch.stack(cols).contiguous()
     out = ff.fa_tape_eval(tape, inputs)
     # a ragged batch (not a multiple of the block) gives the same lanes
     m = B - 3
     if not torch.equal(ff.fa_tape_eval(tape, inputs[:, :m].contiguous()), out[:, :m]):
         raise AssertionError("K2 on a ragged batch != the full launch")
+    # the three-output tape gives the first three outputs
+    if not torch.equal(ff.fa_tape_eval(ff.fa_tape(vk), inputs[:-2].contiguous()), out[:3]):
+        raise AssertionError("K2's three-output tape != the first three outputs of the e-scalar tape")
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     ref = ff.fa_tape_eval_plain(tape, inputs)
@@ -362,26 +601,31 @@ def phase_k2(params, vk, protos, device):
     err = int((out.to(torch.int64) - ref.to(torch.int64)).abs().max())
     if not torch.equal(out, ref):
         raise AssertionError("K2 != plain tape evaluation")
-    # 8 lanes against the host formulas on the parsed proofs' own ints
-    schedule = ff.fa_schedule(vk)
-    host_in = [fo.FR.from_mont_tensor(a) for a in ff.fa_gather(vk, batch)]
+    # 8 lanes against the host formulas on the parsed proofs' own ints; the
+    # e-lane's scalar comes out as plain limbs, the others in Montgomery form
+    tags = ff.fa_schedule(vk) + ff.E_TAGS
+    host_in = [fo.FR.from_mont_tensor(a) for a in cols]
     got = [fo.FR.from_mont_tensor(o) for o in out]
     for lane in range(min(8, B)):
-        vals = {tag: host_in[j][lane] for j, tag in enumerate(schedule)}
-        want = ff.fa_program(IntInvOps(), vk, vals)
+        vals = {tag: host_in[j][lane] for j, tag in enumerate(tags)}
+        want = ff.fa_program_e(IntInvOps(), vk, vals)
         if tuple(g[lane] for g in got) != tuple(want):
             raise AssertionError(f"K2 != host IntOps on lane {lane}")
-    ms = cuda_ms(lambda: ff.fa_tape_eval(tape, inputs), reps=5)
+    ms = cuda_ms(lambda: ff.fa_tape_eval(tape, inputs), reps=20)
+    products = tape_products(tape)
     rec = {
         "name": "fa_tape", "route": "cuda",
         "source": "halo2_aggregation_tpu_torch/csrc/fa_tape.cu",
         "replaces": "halo2_aggregation_tpu/plonk/fa_fused.py:275",
         "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-        **bound(B * tape_products(tape), inputs.numel() * 4 + out.numel() * 4 + tape.instrs.size * 4),
+        **bound(B * products, inputs.numel() * 4 + out.numel() * 4 + tape.instrs.size * 4),
+        "chain_products": products, "chain_field": "Fr",
     }
     emit({
         "phase": "k2", "batch": B, "tape_instrs": int(tape.instrs.shape[0]),
-        "tape_temps": tape.n_temps, "host_lanes": 8, "tolerance": "exact: equal bits", **rec,
+        "tape_temps": tape.n_temps, "tape_inversions": inversions, "products_a_lane": products,
+        "shared_bytes_a_block": ff.shared_bytes(tape),
+        "host_lanes": 8, "tolerance": "exact: equal bits", **rec,
     })
     return rec
 
@@ -389,7 +633,7 @@ def phase_k2(params, vk, protos, device):
 def phase_main(params, vk, protos, device):
     import torch
 
-    from halo2_aggregation_tpu_torch.ops.ec_kernels import scalar_mul_ladder, scalar_mul_win
+    from halo2_aggregation_tpu_torch.ops.ec_kernels import jac_segment_sum, scalar_mul_ladder, scalar_mul_win
     from halo2_aggregation_tpu_torch.plonk.fa_fused import fa_tape_eval
     from halo2_aggregation_tpu_torch.plonk.verifier import verify_proof
     from halo2_aggregation_tpu_torch.plonk.verifier_device import verify_batch
@@ -400,9 +644,11 @@ def phase_main(params, vk, protos, device):
     torch.cuda.reset_peak_memory_stats(device)
     scalar_mul_win.launches = 0
     fa_tape_eval.launches = 0
+    jac_segment_sum.launches = 0
     ok, efws = verify_batch(params, vk, insts, proofs, device=device, aggregate=True)
     torch.cuda.synchronize()
-    launches = {"ec_win": scalar_mul_win.launches, "fa_tape": fa_tape_eval.launches}
+    launches = {"ec_win": scalar_mul_win.launches, "fa_tape": fa_tape_eval.launches,
+                "jac_segment_sum": jac_segment_sum.launches}
     if ok is not True:
         raise AssertionError(f"aggregate check returned {ok!r}")
     if min(launches.values()) < 1:
@@ -471,39 +717,86 @@ def phase_main(params, vk, protos, device):
     return launches
 
 
-def phase_profile(params, vk, insts, proofs, device):
-    """One more main-path run under torch.profiler: the device's busy time
-    (sum of kernel and copy durations on the one stream) against the wall,
-    and the kernels by name.  Prints "not measured" if the profiler
-    recorded no device activity."""
-    import torch
+def device_events(prof) -> dict:
+    """{kernel or copy name: (count, microseconds)} of a profile's device
+    activity."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
-    from halo2_aggregation_tpu_torch.plonk.verifier_device import verify_batch
-
-    t = {}
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        ok, _ = verify_batch(params, vk, insts, proofs, device=device, timings=t)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    if ok is not True:
-        raise AssertionError("aggregate check failed on the profiled run")
     by_name = {}
     for e in prof.events():
         if e.device_type == DeviceType.CUDA:
             n, us = by_name.get(e.name, (0, 0.0))
             by_name[e.name] = (n + 1, us + e.time_range.elapsed_us())
+    return by_name
+
+
+def phase_profile(params, vk, insts, proofs, device):
+    """One more main-path run under torch.profiler: the device's busy time
+    (sum of kernel and copy durations on the one stream) against the wall,
+    the events and the kernels by name; then the device step once more
+    piece by piece, for the events each piece leaves.  Prints "not
+    measured" if the profiler recorded no device activity."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from halo2_aggregation_tpu_torch.ops.curve_ops import JacPoint
+    from halo2_aggregation_tpu_torch.plonk import verifier_device as vd
+    from halo2_aggregation_tpu_torch.plonk.verifier import parse_proof
+
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    t = {}
+    with profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        ok, _ = vd.verify_batch(params, vk, insts, proofs, device=device, timings=t)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    if ok is not True:
+        raise AssertionError("aggregate check failed on the profiled run")
+    by_name = device_events(prof)
+    events = sum(n for n, _ in by_name.values())
     busy_us = sum(us for _, us in by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:8]
+    most = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
+
+    # the pieces of verify_batch's device work, each under its own profile
+    comms = {id(i): [params.commit_lagrange(col) for col in i] for i in insts}
+    parsed = [parse_proof(vk, comms[id(i)], p) for i, p in zip(insts, proofs)]
+    pieces, state = {}, {}
+
+    def piece(name, fn):
+        with profile(activities=acts) as pr:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            host_ms = (time.perf_counter() - t0) * 1e3
+        ev = device_events(pr)
+        pieces[name] = {"events": sum(n for n, _ in ev.values()), "busy_ms": sum(us for _, us in ev.values()) / 1e3,
+                        "host_ms_profiled": host_ms}
+
+    def gather():
+        descs = state["prep"][0]
+        pts = [vd._desc_point_batch(vk, state["batch"], d, B) for comp in descs for d in comp]
+        state["lane_pts"] = JacPoint(*(torch.stack([p[c] for p in pts], 1) for c in range(3)))
+        state["ms"] = tuple(len(comp) for comp in descs)
+
+    piece("batch_proofs", lambda: state.update(batch=vd.batch_proofs(vk, parsed, device)))
+    piece("fast_prep_gathered", lambda: state.update(prep=vd.fast_prep_gathered(vk, parsed, device)))
+    piece("lane_gather", gather)
+    piece("fast_device", lambda: state.update(out=vd.fast_device(
+        vk, state["batch"], B, state["ms"], state["lane_pts"], *state["prep"][1:])))
+    piece("quads_to_ints", lambda: vd.quads_to_ints(state["out"]))
+
+    if by_name and events >= 1000:
+        raise AssertionError(f"the main path made {events} device events a batch, expected fewer than 1,000")
     emit({
         "phase": "profile", "wall_s": wall, "stage_s": t,
-        "device_events": sum(n for n, _ in by_name.values()) or "not measured",
+        "device_events": events or "not measured",
         "device_busy_ms": busy_us / 1e3 if by_name else "not measured",
         "device_busy_share": busy_us / 1e6 / wall if by_name else "not measured",
         # [kernel name cut to 120 characters, launches, ms]
         "top_device_ms": [[name[:120], n, us / 1e3] for name, (n, us) in top],
+        "top_device_count": [[name[:120], n, us / 1e3] for name, (n, us) in most],
+        "events_by_piece": pieces if by_name else "not measured",
     })
 
 
@@ -1115,11 +1408,15 @@ def main() -> int:
         seconds[phase] = now - last[0]
         last[0] = now
 
-    phase_card()
+    card = phase_card()
     phase_build()
     done("card+build")
-    k1, k8 = phase_k1(device)
+    latency = latency_probe(device)
+    k1, k8, k1_out = phase_k1(device)
     done("k1+k8")
+    js = phase_jac_sum(device, k1_out)
+    del k1_out
+    done("jac_sum")
     params, vk, protos = make_proofs()
     k2 = phase_k2(params, vk, protos, device)
     done("k2")
@@ -1128,6 +1425,12 @@ def main() -> int:
     k1["launches"] = launches["ec_win"]
     k2["launches"] = launches["fa_tape"]
     k8["launches"] = launches["ec_ladder"]
+    js["launches"] = launches["jac_segment_sum"]
+    # the lane-serial kernels' chain time: one thread's dependent products
+    # times the measured latency of one; a launch too small to fill the
+    # card can approach this, not bound_ms
+    for rec in (k1, k2, k8, js):
+        rec["chain_ms"] = rec["chain_products"] * latency[rec["chain_field"] + "_ns"] * 1e-6
     recs = phase_ntt(device)
     done("ntt")
     recs["quotient_tape"] = phase_quotient(device)
@@ -1141,7 +1444,8 @@ def main() -> int:
         rec["launches"] = prove_launches[name]
     # K7 is on the prover's path; K9 on DeviceSRS(signed=False) in `msm`
     msm_recs["msm_s5"]["launches"] = prove_launches["msm_s5"]
-    emit({"kernels": [k1, k2, *recs.values(), msm_recs["msm_s5"], k8, msm_recs["msm_u4"]]})
+    emit(card)  # once more, beside the numbers: the build's report is long
+    emit({"kernels": [k1, k2, *recs.values(), msm_recs["msm_s5"], k8, msm_recs["msm_u4"], js]})
     loaded = sorted(m for m, v in sys.modules.items()
                     if v is not None and m.split(".")[0] in ("jax", "jaxlib", "halo2_aggregation_tpu"))
     if loaded:

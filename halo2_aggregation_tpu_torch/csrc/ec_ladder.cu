@@ -22,16 +22,6 @@ namespace {
 
 using namespace h2a;
 
-__device__ __forceinline__ void load_fe(Fe& r, const uint32_t* src) {
-#pragma unroll
-  for (int i = 0; i < NL; i++) r.v[i] = src[i];
-}
-
-__device__ __forceinline__ void store_fe(uint32_t* dst, const Fe& a) {
-#pragma unroll
-  for (int i = 0; i < NL; i++) dst[i] = a.v[i];
-}
-
 __global__ void ec_ladder_kernel(const uint32_t* __restrict__ px,
                                  const uint32_t* __restrict__ py,
                                  const uint32_t* __restrict__ pz,
@@ -42,10 +32,7 @@ __global__ void ec_ladder_kernel(const uint32_t* __restrict__ px,
   int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
   size_t off = (size_t)i * NL;
-  Jac P;
-  load_fe(P.x, px + off);
-  load_fe(P.y, py + off);
-  load_fe(P.z, pz + off);
+  Jac P{load_fe(px + off), load_fe(py + off), load_fe(pz + off)};
   uint32_t s[NL];
 #pragma unroll
   for (int k = 0; k < NL; k++) s[k] = scalars[off + k];

@@ -1,25 +1,32 @@
-// Kernel K1: batched 4-bit windowed BN254 G1 scalar multiplication.
+// Kernel K1: batched 4-bit windowed BN254 G1 scalar multiplication, each
+// lane split by the GLV endomorphism over two threads.
 //
 // Replaces halo2_aggregation_tpu/ops/ec_pallas.py::_win_kernel (:354-405)
 // and its canonicalizing companion _final_kernel (:604-607): the outputs of
 // fe_* are canonical already, so no second pass is needed.
 //
-// Shape: one thread per lane.  Lane i reads P_i = (x, y, z) and the plain
-// scalar s_i, each 8 x 32-bit limbs, and keeps its 16-entry table k*P in
-// local memory (16 x 3 x 32 B = 1.5 KB a thread).  The ragged edge is a
-// bounds check; no identity padding is needed, unlike the TPU's 128-lane
-// tiles.
+// What bounds it on the H100: at the main path's 4,608 lanes not the
+// multiply throughput but the latency of one thread's chain of dependent Fq
+// products.  A lane reads 128 B and writes 96 B; one thread a lane spent
+// about 2,950 products in series (a 16-entry table, 252 doublings, 64 adds)
+// on 144 warps, a quarter of the card's 528 warp schedulers, and a thread
+// holds one carry chain at a time, so its products cannot overlap.
 //
-// What bounds it on the H100: integer multiply throughput, not memory.  A
-// lane reads 128 B and writes 96 B, but spends about 2,950 Fq Montgomery
-// products (7 doublings and 7 adds for the table, then 252 doublings and
-// 64 adds; the TPU kernel's branchless add also pays a doubling, which
-// bench.py:382-388 counts as 3,474), each 128 32x32->64-bit multiply-adds
-// plus carries.  The design answers with 64-bit products on 32-bit limbs
-// (4x fewer partial products than the TPU's 8-bit limbs) and branches for
-// the rare edge cases.  One thread per lane gives few warps at the main
-// path's 4,608 lanes, so latency, not issue rate, is the next limit; that
-// is for a later change.
+// What the design does about it: a shorter chain on more warps.  The scalar
+// is reduced mod r and split in the kernel, s = s1 + s2 lambda with halves
+// of about 128 bits (ec_win.cuh; the e-lane's scalar is made on the card,
+// so the split cannot be the host's).  Thread 2i runs |s1| over +-P_i,
+// thread 2i + 1 runs |s2| over +-phi(P_i) = (beta X, +-Y, Z): each 33
+// windows of signed digits over a table of 8 entries in local memory
+// (0.9 KB a thread), about 1,520 products in series.  Thread 2i + 1's point
+// goes to thread 2i by shuffles; that thread adds the two, makes the
+// identity (1, 1, 0) and stores.  The block is one warp while the launch is
+// short (under two waves of the occupancy call's block), so that the warps
+// spread evenly over every SM, and the size the occupancy call gives (at
+// most 256 threads) above that; the ragged edge is a bounds check.
+//
+// The contract gains one clause over the TPU kernel's: the points are on
+// the curve (phi is [lambda] only there).
 #include <cuda_runtime.h>
 
 #include "ec_win.cuh"
@@ -28,51 +35,82 @@ namespace {
 
 using namespace h2a;
 
-__device__ __forceinline__ void load_fe(Fe& r, const uint32_t* src) {
-#pragma unroll
-  for (int i = 0; i < NL; i++) r.v[i] = src[i];
-}
-
-__device__ __forceinline__ void store_fe(uint32_t* dst, const Fe& a) {
-#pragma unroll
-  for (int i = 0; i < NL; i++) dst[i] = a.v[i];
-}
-
 __global__ void ec_win_kernel(const uint32_t* __restrict__ px,
                               const uint32_t* __restrict__ py,
                               const uint32_t* __restrict__ pz,
                               const uint32_t* __restrict__ scalars,
+                              const uint32_t* __restrict__ consts,
                               uint32_t* __restrict__ ox,
                               uint32_t* __restrict__ oy,
                               uint32_t* __restrict__ oz, int n) {
-  int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  size_t off = (size_t)i * NL;
-  Jac P;
-  load_fe(P.x, px + off);
-  load_fe(P.y, py + off);
-  load_fe(P.z, pz + off);
-  uint32_t s[NL];
+  // every thread of the warp stays for the shuffles: no early return
+  size_t t = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  size_t lane = t >> 1;
+  int h = (int)(t & 1);
+  bool active = lane < (size_t)n;
+  size_t off = lane * NL;
+  Jac half = jac_identity();
+  if (active) {
+    Jac P{load_fe(px + off), load_fe(py + off), load_fe(pz + off)};
+    uint32_t s[NL];
 #pragma unroll
-  for (int k = 0; k < NL; k++) s[k] = scalars[off + k];
-  Jac r = ec_win_lane(P, s);
+    for (int k = 0; k < NL; k++) s[k] = scalars[off + k];
+    half = ec_glv_half(P, s, consts, h);
+  }
+  Jac other;
+#pragma unroll
+  for (int k = 0; k < NL; k++) {
+    other.x.v[k] = __shfl_down_sync(0xffffffffu, half.x.v[k], 1);
+    other.y.v[k] = __shfl_down_sync(0xffffffffu, half.y.v[k], 1);
+    other.z.v[k] = __shfl_down_sync(0xffffffffu, half.z.v[k], 1);
+  }
+  if (!active || h) return;
+  Jac r = ec_glv_finish(half, other);
   store_fe(ox + off, r.x);
   store_fe(oy + off, r.y);
   store_fe(oz + off, r.z);
 }
 
+// The block size for n lanes: one warp while the launch is less than two
+// waves of the block the occupancy call gives (small blocks spread a short
+// launch evenly over the SMs: at 2^14 lanes on an H100 0.98 ms against 1.50
+// with that block), above that the occupancy call's block, capped at 256
+// threads (at 2^17 lanes 7.83 ms against 8.37 with its 384).
+int choose_block(int n, int* threads) {
+  int min_grid = 0, block = 0;
+  cudaError_t err =
+      cudaOccupancyMaxPotentialBlockSize(&min_grid, &block, ec_win_kernel, 0, 0);
+  if (err != cudaSuccess) return (int)err;
+  if (2ll * n < 2ll * min_grid * block) {
+    *threads = 32;
+  } else {
+    *threads = block < 256 ? block : 256;
+  }
+  return 0;
+}
+
 }  // namespace
 
-// Launches on `stream`; returns cudaGetLastError() (0 on success).
+// The block size the launcher takes for n lanes, into *threads.
+extern "C" int h2a_ec_win_block(int n, int* threads) {
+  return choose_block(n, threads);
+}
+
+// Launches on `stream`; returns cudaGetLastError() (0 on success).  consts:
+// the 7 x 8 words of ec_win.cuh's constants on the device.  threads: the block
+// size, a multiple of 32, or 0 to choose it from n.
 extern "C" int h2a_ec_win(const uint32_t* px, const uint32_t* py,
                           const uint32_t* pz, const uint32_t* scalars,
-                          uint32_t* ox, uint32_t* oy, uint32_t* oz, int n,
-                          void* stream) {
+                          const uint32_t* consts, uint32_t* ox, uint32_t* oy,
+                          uint32_t* oz, int n, int threads, void* stream) {
   if (n <= 0) return 0;
-  // 32 threads a block spreads the 4,608 main-path lanes over 144 blocks,
-  // more than the card's 132 SMs
-  const int threads = 32;
-  ec_win_kernel<<<(n + threads - 1) / threads, threads, 0,
-                  (cudaStream_t)stream>>>(px, py, pz, scalars, ox, oy, oz, n);
+  if (threads < 0 || threads % 32) return (int)cudaErrorInvalidValue;
+  if (threads == 0) {
+    int rc = choose_block(n, &threads);
+    if (rc != 0) return rc;
+  }
+  unsigned blocks = (unsigned)((2ll * n + threads - 1) / threads);
+  ec_win_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
+      px, py, pz, scalars, consts, ox, oy, oz, n);
   return (int)cudaGetLastError();
 }

@@ -17,6 +17,10 @@
 // What bounds it on the H100: the products are device-memory bound (one
 // Montgomery product per 64 bytes moved); pow_series is compute bound (up
 // to 2k products per element, nothing read).
+//
+// Two test entries measure fe_mul itself: h2a_mont_mul (one product an
+// element, held to the plain PyTorch product) and h2a_mul_chain (a chain of
+// dependent products a thread: the latency of one).
 #include <cuda_runtime.h>
 
 #include "ntt.cuh"
@@ -69,6 +73,20 @@ __global__ void mont_mul_kernel(const uint32_t* __restrict__ a,
   st_fe(out + e, fe_mul<F>(ld_fe(a + e), ld_fe(b + e)));
 }
 
+// out[i] = a[i] * b[i]^iters: every thread runs `iters` products in series,
+// each waiting for the one before.  With one warp a block and one block an
+// SM the time over iters is the latency of one dependent fe_mul.
+template <class F>
+__global__ void mul_chain_kernel(const uint32_t* __restrict__ a,
+                                 const uint32_t* __restrict__ b,
+                                 uint32_t* __restrict__ out, int iters) {
+  size_t e = ((size_t)blockIdx.x * blockDim.x + threadIdx.x) * NL;
+  Fe x = ld_fe(a + e), y = ld_fe(b + e);
+#pragma unroll 1
+  for (int i = 0; i < iters; i++) x = fe_mul<F>(x, y);
+  st_fe(out + e, x);
+}
+
 }  // namespace
 
 // Each entry point launches on `stream` and returns cudaGetLastError().
@@ -112,6 +130,21 @@ extern "C" int h2a_mont_mul(int field, const uint32_t* a, const uint32_t* b,
     mont_mul_kernel<Fr><<<blocks, kThreads, 0, st>>>(a, b, out, (uint32_t)n);
   } else {
     mont_mul_kernel<Fq><<<blocks, kThreads, 0, st>>>(a, b, out, (uint32_t)n);
+  }
+  return (int)cudaGetLastError();
+}
+
+// Latency probe: `blocks` blocks of one warp, each thread `iters` dependent
+// products over element (block, thread) of a and b, in Fq (field == 0) or Fr.
+extern "C" int h2a_mul_chain(int field, const uint32_t* a, const uint32_t* b,
+                             uint32_t* out, int blocks, int iters,
+                             void* stream) {
+  if (blocks <= 0 || iters < 0) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (field) {
+    mul_chain_kernel<Fr><<<blocks, 32, 0, st>>>(a, b, out, iters);
+  } else {
+    mul_chain_kernel<Fq><<<blocks, 32, 0, st>>>(a, b, out, iters);
   }
   return (int)cudaGetLastError();
 }

@@ -83,6 +83,18 @@ H2A_HD Fe fe_zero() {
   return r;
 }
 
+H2A_HD Fe load_fe(const uint32_t* src) {
+  Fe a;
+#pragma unroll
+  for (int i = 0; i < NL; i++) a.v[i] = src[i];
+  return a;
+}
+
+H2A_HD void store_fe(uint32_t* dst, const Fe& a) {
+#pragma unroll
+  for (int i = 0; i < NL; i++) dst[i] = a.v[i];
+}
+
 H2A_HD bool fe_is_zero(const Fe& a) {
   uint32_t acc = 0;
 #pragma unroll
@@ -379,16 +391,39 @@ H2A_HD Fe fe_sqr(const Fe& a) {
 }
 
 // Fermat inverse a^(p-2) in the Montgomery domain; 0 maps to 0.  The
-// exponent is p with its low limb less 2 (both moduli have P0 >= 2).
+// exponent is p with its low limb less 2 (both moduli have P0 >= 2), taken
+// from the top with a sliding window of 4 bits: the odd powers a, a^3, ..
+// a^15 (8 products), one squaring a bit, and one product a window (a window
+// starts and ends on a set bit): 312 products for Fr and 311 for Fq, where
+// one bit at a time took 381 and 364.
 template <class F>
 H2A_HD Fe fe_inv(const Fe& a) {
   uint32_t e[NL];
   load_p<F>(e);
   e[0] -= 2;
+  Fe odd[8];
+  odd[0] = a;
+  Fe a2 = fe_sqr<F>(a);
+#pragma unroll 1
+  for (int i = 1; i < 8; i++) odd[i] = fe_mul<F>(odd[i - 1], a2);
   Fe acc = fe_one<F>();
-  for (int bit = 253; bit >= 0; --bit) {
-    acc = fe_sqr<F>(acc);
-    if ((e[bit >> 5] >> (bit & 31)) & 1u) acc = fe_mul<F>(acc, a);
+  int bit = 253;
+#pragma unroll 1
+  while (bit >= 0) {
+    if (!((e[bit >> 5] >> (bit & 31)) & 1u)) {
+      acc = fe_sqr<F>(acc);
+      --bit;
+      continue;
+    }
+    int lo = bit < 3 ? 0 : bit - 3;
+    while (!((e[lo >> 5] >> (lo & 31)) & 1u)) ++lo;
+    uint32_t w = 0;
+    for (int j = bit; j >= lo; --j) {
+      w = (w << 1) | ((e[j >> 5] >> (j & 31)) & 1u);
+      acc = fe_sqr<F>(acc);
+    }
+    acc = fe_mul<F>(acc, odd[w >> 1]);
+    bit = lo - 1;
   }
   return acc;
 }

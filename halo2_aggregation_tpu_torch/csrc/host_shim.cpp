@@ -1,12 +1,15 @@
 // Host build of the kernels' arithmetic: g++ compiles the same headers the
 // CUDA kernels use, so the CPU tests check K1's, K2's, K6's and K8's per-lane
-// code, the NTT butterflies, index maps and fused passes of K3-K5, the mixed
-// add and the per-thread bucket pass, fold and Horner of K7 and K9 without a card
+// code (K1's scalar split and two halves, K2's shared-memory register file),
+// the segmented sum's per-thread code and tree, the NTT butterflies, index
+// maps and fused passes of K3-K5, the mixed add and the per-thread bucket
+// pass, fold and Horner of K7 and K9 without a card
 // (tests/test_torch_host_core.py).  Not part of the CUDA library.  Layouts
 // match the kernels': elements are 8 x 32-bit limbs.
 #include "ec_ladder.cuh"
 #include "ec_win.cuh"
 #include "fa_tape.cuh"
+#include "jac_sum.cuh"
 #include "msm.cuh"
 #include "ntt.cuh"
 #include "quotient_tape.cuh"
@@ -48,6 +51,14 @@ void h2a_host_mont_mul_cc(int field, const uint32_t* a, const uint32_t* b,
   }
 }
 
+// out[i] = 1 / a[i] (Montgomery; 0 for 0).
+void h2a_host_inv(int field, const uint32_t* a, uint32_t* out, int n) {
+  for (int i = 0; i < n; i++) {
+    Fe x = load(a + NL * i);
+    store(out + NL * i, field ? fe_inv<Fr>(x) : fe_inv<Fq>(x));
+  }
+}
+
 // sum[i] = a[i] + b[i], diff[i] = a[i] - b[i]: through the portable forms
 // (cc == 0) or the carry-flag forms the card runs.
 void h2a_host_add_sub(int field, int cc, const uint32_t* a, const uint32_t* b,
@@ -80,16 +91,55 @@ void h2a_host_jac_add(const uint32_t* p, const uint32_t* q, uint32_t* out,
   }
 }
 
+// K1's lane on every lane: the two halves as the kernel's two threads run
+// them, then the first thread's add.  consts: the 7 x 8 words of ec_win.cuh.
 void h2a_host_ec_win(const uint32_t* px, const uint32_t* py,
                      const uint32_t* pz, const uint32_t* scalars,
-                     uint32_t* ox, uint32_t* oy, uint32_t* oz, int n) {
+                     const uint32_t* consts, uint32_t* ox, uint32_t* oy,
+                     uint32_t* oz, int n) {
   for (int i = 0; i < n; i++) {
     size_t off = (size_t)NL * i;
     Jac P{load(px + off), load(py + off), load(pz + off)};
-    Jac r = ec_win_lane(P, scalars + off);
+    Jac r = ec_glv_finish(ec_glv_half(P, scalars + off, consts, 0),
+                          ec_glv_half(P, scalars + off, consts, 1));
     store(ox + off, r.x);
     store(oy + off, r.y);
     store(oz + off, r.z);
+  }
+}
+
+// K1's scalar split alone: mags (n, 2, 8) the halves' magnitudes, negs
+// (n, 2) their signs (1: negative).
+void h2a_host_glv_split(const uint32_t* scalars, const uint32_t* consts,
+                        uint32_t* mags, int32_t* negs, int n) {
+  for (int i = 0; i < n; i++)
+    for (int h = 0; h < 2; h++)
+      negs[2 * i + h] = glv_half_scalar(mags + (size_t)(2 * i + h) * NL,
+                                        scalars + (size_t)i * NL, consts, h);
+}
+
+// The segmented sum as the kernel's warps run it: JS_WIDTH partial sums a
+// (segment, batch element), then the tree level by level.  Outputs
+// (n_seg, batch, 8).
+void h2a_host_jac_segment_sum(const uint32_t* px, const uint32_t* py,
+                              const uint32_t* pz, long long batch_stride,
+                              long long lane_stride, const int32_t* offsets,
+                              int n_seg, int batch, uint32_t* ox, uint32_t* oy,
+                              uint32_t* oz) {
+  JacLanes L{px, py, pz, (size_t)batch_stride, (size_t)lane_stride};
+  Jac sh[JS_WIDTH];
+  for (int seg = 0; seg < n_seg; seg++) {
+    for (int b = 0; b < batch; b++) {
+      for (int t = 0; t < JS_WIDTH; t++)
+        sh[t] = jac_sum_partial(L, (size_t)b, offsets[seg], offsets[seg + 1], t);
+      for (int s = JS_WIDTH / 2; s > 0; s >>= 1)
+        for (int t = 0; t < JS_WIDTH; t++) jac_sum_level(sh, t, s);
+      Jac r = jac_sum_finish(sh[0]);
+      size_t off = ((size_t)seg * batch + b) * NL;
+      store(ox + off, r.x);
+      store(oy + off, r.y);
+      store(oz + off, r.z);
+    }
   }
 }
 
@@ -182,6 +232,21 @@ void h2a_host_fa_tape(const int32_t* tape, int n_instr, const uint32_t* consts,
     TapeRegs R{consts, in, tmp, n_in, lanes, lane};
     fa_tape_lane(tape, n_instr, R, out_regs, n_out, out);
   }
+}
+
+// K2 as its blocks run it: `block` lanes a block, their register file
+// [register][limb][lane] in a buffer that stands for the shared memory.
+void h2a_host_fa_tape_shared(const int32_t* tape, int n_instr,
+                             const uint32_t* consts, const uint32_t* in,
+                             int n_in, int n_tmp, const int32_t* out_regs,
+                             int n_out, uint32_t* out, int lanes, int block) {
+  uint32_t* regs = new uint32_t[(size_t)(n_in + n_tmp) * NL * block];
+  for (int lane = 0; lane < lanes; lane++) {
+    SharedTapeRegs R{consts, regs, block, lane % block};
+    fa_tape_lane_shared(tape, n_instr, R, in, n_in, lanes, lane, out_regs,
+                        n_out, out);
+  }
+  delete[] regs;
 }
 
 // Stage s of a size-2^k transform over `cols` columns of x (cols, n, 8), in

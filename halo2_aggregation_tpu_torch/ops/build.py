@@ -29,7 +29,8 @@ import torch
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "kernels"
 KERNEL_SOURCES = (
-    "ec_win.cu", "ec_ladder.cu", "fa_tape.cu", "ntt.cu", "ew.cu", "quotient_tape.cu", "msm.cu",
+    "ec_win.cu", "ec_ladder.cu", "fa_tape.cu", "jac_sum.cu", "ntt.cu", "ew.cu", "quotient_tape.cu",
+    "msm.cu",
 )
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -41,12 +42,18 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
 _SIGNATURES = {
-    # px, py, pz, scalars, ox, oy, oz, n, stream
-    "h2a_ec_win": [_P, _P, _P, _P, _P, _P, _P, _I, _P],
+    # px, py, pz, scalars, consts, ox, oy, oz, n, threads (0: from n), stream
+    "h2a_ec_win": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P],
+    # n, threads (out): the block the launcher takes for n lanes
+    "h2a_ec_win_block": [_I, _P],
     # px, py, pz, scalars, ox, oy, oz, n, nbits, stream
     "h2a_ec_ladder": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _P],
-    # tape, n_instr, consts, in, n_in, tmp, out_regs, n_out, out, lanes, stream
-    "h2a_fa_tape": [_P, _I, _P, _P, _I, _P, _P, _I, _P, _I, _P],
+    # tape, n_instr, consts, n_consts, in, n_in, n_tmp, out_regs, n_out, out,
+    # lanes, stream
+    "h2a_fa_tape": [_P, _I, _P, _I, _P, _I, _I, _P, _I, _P, _I, _P],
+    # px, py, pz, batch_stride, lane_stride, offsets, n_seg, batch, ox, oy, oz,
+    # stream
+    "h2a_jac_segment_sum": [_P, _P, _P, _L, _L, _P, _I, _I, _P, _P, _P, _P],
     # x, tw, scale (or null), cols, k, s0, r, dif, stream
     "h2a_ntt_pass": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
     # dif, tile_bytes, blocks_per_sm (out), sms (out)
@@ -57,6 +64,8 @@ _SIGNATURES = {
     "h2a_ew_mul_scalar": [_P, _P, _P, _L, _P],
     # field (0 = Fq, 1 = Fr), a, b, out, n, stream
     "h2a_mont_mul": [_I, _P, _P, _P, _I, _P],
+    # field, a, b, out, blocks (of one warp), iters, stream
+    "h2a_mul_chain": [_I, _P, _P, _P, _I, _I, _P],
     # out, start, base, k, bitrev, stream
     "h2a_pow_series": [_P, _P, _P, _I, _I, _P],
     # tape, n_instr, consts, in_src, in_rot, n_in, stack, x, uniforms, n,
@@ -176,12 +185,16 @@ def build_host_library(out_dir) -> ctypes.CDLL:
         "h2a_host_add_sub": [_I, _I, _P, _P, _P, _P, _I],
         "h2a_host_jac_add": [_P, _P, _P, _I],
         "h2a_host_jac_add_mixed": [_P, _P, _P, _P, _I],
-        "h2a_host_ec_win": [_P, _P, _P, _P, _P, _P, _P, _I],
+        "h2a_host_ec_win": [_P, _P, _P, _P, _P, _P, _P, _P, _I],
+        "h2a_host_inv": [_I, _P, _P, _I],
+        "h2a_host_glv_split": [_P, _P, _P, _P, _I],
+        "h2a_host_jac_segment_sum": [_P, _P, _P, _L, _L, _P, _I, _I, _P, _P, _P],
         "h2a_host_ec_ladder": [_P, _P, _P, _P, _P, _P, _P, _I, _I],
         "h2a_host_msm_sort": [_I, _P, _I, _I, _I, _P, _P],
         "h2a_host_msm_partials": [_I, _P, _P, _P, _I, _I, _P, _P, _P],
         "h2a_host_msm_horner": [_I, _P, _P],
         "h2a_host_fa_tape": [_P, _I, _P, _P, _I, _P, _P, _I, _P, _I],
+        "h2a_host_fa_tape_shared": [_P, _I, _P, _P, _I, _I, _P, _I, _P, _I, _I],
         "h2a_host_ntt_stage": [_P, _P, _I, _I, _I, _I],
         "h2a_host_ntt_pass": [_P, _P, _P, _I, _I, _I, _I, _I],
         "h2a_host_ntt_tile_indices": [_I, _I, _I, _P],

@@ -6,8 +6,11 @@ q == O -> p, p == q -> 2p, p == -q -> O).  Coordinates are `(..., 8)`
 int32 port tensors; Z == 0 encodes the identity.  Internally the chains
 run on the wide form of `field_ops` and convert once at each end.
 
-`scalar_mul` is the plain version of kernel K1 (`csrc/ec_win.cu`): the
-same 4-bit windowed ladder, batched over lanes with torch ops;
+`scalar_mul` is the plain version of kernel K1 (`csrc/ec_win.cu`): a
+4-bit windowed ladder over all 64 windows of the scalar, batched over lanes
+with torch ops (the kernel splits the scalar in two halves first; the
+affine points are equal); `jac_segment_sum` that of the segmented-sum
+kernel (`csrc/jac_sum.cu`);
 `scalar_mul_ladder` that of kernel K8 (`csrc/ec_ladder.cu`), the
 bit-serial double-and-add.  `jac_add_mixed` (Jacobian + affine) is the
 plain version of `csrc/curve.cuh::jac_add_mixed`, the add of kernel K7.
@@ -156,6 +159,18 @@ def jac_add_mixed(p: JacPoint, x2: torch.Tensor, y2: torch.Tensor) -> JacPoint:
     return _narrow(_wadd_mixed(_widen(p), widen(x2), widen(y2)))
 
 
+def jac_eq(p: JacPoint, q: JacPoint) -> torch.Tensor:
+    """Whether p and q are the same group element, lane by lane (a bool
+    tensor of the batch shape), whatever their Jacobian representatives:
+    both the identity, or X1 Z2^2 = X2 Z1^2 and Y1 Z2^3 = Y2 Z1^3."""
+    a, b = _widen(p), _widen(q)
+    z1z1, z2z2 = wmul(a.z, a.z, FQ), wmul(b.z, b.z, FQ)
+    same_x = (wmul(a.x, z2z2, FQ) == wmul(b.x, z1z1, FQ)).all(-1)
+    same_y = (wmul(a.y, wmul(b.z, z2z2, FQ), FQ) == wmul(b.y, wmul(a.z, z1z1, FQ), FQ)).all(-1)
+    p_inf, q_inf = is_zero(a.z), is_zero(b.z)
+    return (p_inf & q_inf) | (~p_inf & ~q_inf & same_x & same_y)
+
+
 def jac_sum(p: JacPoint) -> JacPoint:
     """Sum the points along axis 0 (any further batch axes stay): a tree of
     batched adds, log2(n) steps instead of n - 1 sequential ones.  The group
@@ -170,6 +185,32 @@ def jac_sum(p: JacPoint) -> JacPoint:
         half = w.x.shape[0] // 2
         w = _wadd(JacPoint(*(c[:half] for c in w)), JacPoint(*(c[half:] for c in w)))
     return _narrow(JacPoint(*(c[0] for c in w)))
+
+
+def jac_segment_sum(p: JacPoint, offsets, lane_axis: int = 0) -> JacPoint:
+    """Per-segment sums of the points along `lane_axis` of `(..., 8)`
+    coordinates: segment j holds lanes offsets[j] .. offsets[j + 1] - 1
+    (non-decreasing offsets; an empty segment gives the identity (1, 1, 0)).
+    Returns coordinates of shape (segments, *other axes, 8): the function
+    of the JAX `jac_segment_sum` for contiguous segments, and the plain
+    version of the segmented-sum kernel (`csrc/jac_sum.cu`), one `jac_sum`
+    a segment.  The kernel adds in another order: compare as affine
+    points."""
+    offsets = [int(o) for o in offsets]
+    if len(offsets) < 2 or any(a > b for a, b in zip(offsets, offsets[1:])):
+        raise ValueError(f"offsets {offsets}: expected two or more, non-decreasing")
+    lanes = JacPoint(*(c.movedim(lane_axis, 0) for c in p))
+    if offsets[0] < 0 or offsets[-1] > lanes.x.shape[0]:
+        raise ValueError(f"offsets {offsets} leave the {lanes.x.shape[0]} lanes")
+    sums = []
+    for lo, hi in zip(offsets, offsets[1:]):
+        if lo == hi:
+            sums.append(jac_identity(lanes.x.shape[1:-1], lanes.x.device))
+            continue
+        seg = jac_sum(JacPoint(*(c[lo:hi] for c in lanes)))
+        ident = jac_identity(seg.x.shape[:-1], seg.x.device)
+        sums.append(JacPoint(*(select(is_zero(seg.z), i, a) for i, a in zip(ident, seg))))
+    return JacPoint(*(torch.stack([s[c] for s in sums]) for c in range(3)))
 
 
 def window_digits(scalars: torch.Tensor) -> torch.Tensor:

@@ -1,23 +1,28 @@
 """Kernel K2: the batched verifier's fused field algebra.
 
 Counterpart of `halo2_aggregation_tpu/plonk/fa_fused.py`: per proof, x^n
-by k squarings, the 2 + bf Lagrange evaluations and 1/(x^n - 1) by Fermat
-inversion, every gate, permutation and lookup expression, the y-fold and
-the vanishing division.  Outputs `(h_eval, x^n, x^n - 1)` are canonical
-Montgomery Fr, bit-identical to `verifier_tpu.field_algebra`'s.
+by k squarings, the 2 + bf Lagrange evaluations and 1/(x^n - 1), every
+gate, permutation and lookup expression, the y-fold and the vanishing
+division.  Outputs `(h_eval, x^n, x^n - 1)` are canonical Montgomery Fr,
+bit-identical to `verifier_tpu.field_algebra`'s.  The JAX body inverts each
+of its 3 + bf denominators by a Fermat chain of its own; here `batch_inv`
+inverts them together with one chain (Montgomery's trick), which gives the
+same outputs in every case, the zero denominators included (see
+`fa_program`).
 
 `fa_program` writes the steps once over a `ScalarOps` backend with `inv`,
-calling `plonk/protocol.py`'s formulas.  `fa_tape` records it with
-`TapeOps`; `fa_tape_eval` runs the tape in the CUDA interpreter
-(`csrc/fa_tape.cu`), `fa_tape_eval_plain` with `TorchLimbOps`.
-`fa_schedule`/`fa_gather` are copies of the JAX module's (it imports jax).
+calling `plonk/protocol.py`'s formulas; `fa_program_e` adds the verifier's
+e-lane scalar as a fourth output.  `fa_tape` records either with `TapeOps`;
+`fa_tape_eval` runs the tape in the CUDA interpreter (`csrc/fa_tape.cu`),
+`fa_tape_eval_plain` with `TorchLimbOps`.  `fa_schedule`/`fa_gather` are
+copies of the JAX module's (it imports jax).
 """
 
 from __future__ import annotations
 
 import torch
 
-from ..fields import R
+from ..fields import MONT_R, R
 from ..ops import build
 from .protocol import (
     LookupEvals,
@@ -67,10 +72,34 @@ def fa_gather(vk, b):
     return out
 
 
+def batch_inv(ops, values: list) -> list:
+    """The inverses of `values` with ONE `ops.inv` (Montgomery's trick):
+    the prefix products, the inverse of the last, then back down: 3 (n - 1)
+    products and one inversion for n values.  With `inv(0) = 0`, one zero
+    among the values makes EVERY inverse zero."""
+    prefix = [values[0]]
+    for v in values[1:]:
+        prefix.append(ops.mul(prefix[-1], v))
+    acc = ops.inv(prefix[-1])
+    out = [None] * len(values)
+    for i in range(len(values) - 1, 0, -1):
+        out[i] = ops.mul(acc, prefix[i - 1])
+        acc = ops.mul(acc, values[i])
+    out[0] = acc
+    return out
+
+
 def fa_program(ops, vk, vals: dict):
     """Steps 20-24 of the verifier over `ops` (a ScalarOps with `inv`);
     `vals` maps fa_schedule tags to values.  Returns (h_eval, xn, xn - 1),
-    the formulas of JAX `fa_body` (`plonk/fa_fused.py:174-258`)."""
+    the formulas of JAX `fa_body` (`plonk/fa_fused.py:174-258`).
+
+    The 2 + bf Lagrange denominators and x^n - 1 are inverted together by
+    `batch_inv`.  That changes no output, the zero cases included: a
+    denominator n (x - w^i) is zero only where x^n = 1, and x^n - 1 = 0
+    makes every Lagrange numerator (x^n - 1) w^i zero and h_eval = fold *
+    inv(0) = 0 with separate inversions too; with one inversion every
+    inverse is zero then, and the same products are zero."""
     cs = vk.cs
     n = vk.n
     omega_inv = pow(vk.omega, -1, R)
@@ -85,13 +114,14 @@ def fa_program(ops, vk, vals: dict):
     xn_sub_one = ops.sub(xn, ops.constant(1))
 
     # l_i(x) = w^i (x^n - 1) / (n (x - w^i)), i = 0, -1, ..., -(bf + 1)
-    l_evals = []
+    numers, denoms = [], []
     w_pow = 1
     for _ in range(2 + bf):
-        numer = ops.mul(xn_sub_one, ops.constant(w_pow))
-        denom = ops.mul(ops.sub(x, ops.constant(w_pow)), ops.constant(n))
-        l_evals.append(ops.mul(numer, ops.inv(denom)))
+        numers.append(ops.mul(xn_sub_one, ops.constant(w_pow)))
+        denoms.append(ops.mul(ops.sub(x, ops.constant(w_pow)), ops.constant(n)))
         w_pow = w_pow * omega_inv % R
+    *denom_invs, vanishing_inv = batch_inv(ops, denoms + [xn_sub_one])
+    l_evals = [ops.mul(a, b) for a, b in zip(numers, denom_invs)]
     l_evals.reverse()
     l_last = l_evals[0]
     l_blind = l_evals[1]
@@ -129,20 +159,38 @@ def fa_program(ops, vk, vals: dict):
             vals[("theta",)], vals[("beta",)], vals[("gamma",)], adv, fix, inst,
         )
 
-    h_eval = ops.mul(fold_y(ops, exprs, vals[("y",)]), ops.inv(xn_sub_one))
+    h_eval = ops.mul(fold_y(ops, exprs, vals[("y",)]), vanishing_inv)
     return h_eval, xn, xn_sub_one
+
+
+E_TAGS = (("h_coeff",), ("known",))  # fa_program_e's inputs after fa_schedule's
+
+
+def fa_program_e(ops, vk, vals: dict):
+    """`fa_program` and the verifier's e-lane scalar: returns (h_eval, xn,
+    xn - 1, e), e = -(known + h_coeff * h_eval) * 2^-256.  `vals` also maps
+    `E_TAGS` to the two vectors of the h_eval linearization
+    (`verifier_device.fast_prep_gathered`).  The Montgomery form of e is
+    the PLAIN value of -(known + h_coeff * h_eval): the limbs the
+    scalar-mul takes, what `from_mont` of that value gives."""
+    h_eval, xn, xn_sub_one = fa_program(ops, vk, vals)
+    eval_multi = ops.add(ops.mul(vals[("h_coeff",)], h_eval), vals[("known",)])
+    e = ops.mul(ops.neg(eval_multi), ops.constant(pow(MONT_R, -1, R)))
+    return h_eval, xn, xn_sub_one, e
 
 
 _TAPES = {}
 
 
-def fa_tape(vk) -> Tape:
-    """fa_program recorded for `vk` (kept per vk hash)."""
-    key = vk.hash_scalar()
+def fa_tape(vk, e_scalar: bool = False) -> Tape:
+    """`fa_program` recorded for `vk` (kept per vk hash), or with
+    `e_scalar` `fa_program_e`: two more inputs, one more output."""
+    key = (vk.hash_scalar(), e_scalar)
     if key not in _TAPES:
-        schedule = fa_schedule(vk)
+        schedule = fa_schedule(vk) + (E_TAGS if e_scalar else ())
         ops = TapeOps(len(schedule))
-        outs = fa_program(ops, vk, dict(zip(schedule, ops.inputs())))
+        program = fa_program_e if e_scalar else fa_program
+        outs = program(ops, vk, dict(zip(schedule, ops.inputs())))
         _TAPES[key] = ops.finish(list(outs))
     return _TAPES[key]
 
@@ -152,6 +200,18 @@ def fa_tape_eval_plain(tape: Tape, inputs: torch.Tensor) -> torch.Tensor:
     ops = TorchLimbOps(inputs.device)
     outs = run_tape(tape, list(inputs), ops)
     return torch.stack([o.expand(inputs.shape[1:]) for o in outs])
+
+
+LANES_PER_BLOCK = 32  # csrc/fa_tape.cu::kLanes
+MAX_SHARED_BYTES = 232448  # a block's shared memory on sm_90 (227 KB)
+
+
+def shared_bytes(tape: Tape) -> int:
+    """Shared memory a block of K2 needs for `tape`: the tape, the
+    constants and the register file of its lanes
+    (`csrc/fa_tape.cuh::fa_tape_shared_words`)."""
+    words = 4 * tape.instrs.shape[0] + 8 * len(tape.consts)
+    return 4 * (words + (tape.n_inputs + tape.n_temps) * 8 * LANES_PER_BLOCK)
 
 
 def fa_tape_eval(tape: Tape, inputs: torch.Tensor) -> torch.Tensor:
@@ -168,13 +228,18 @@ def fa_tape_eval(tape: Tape, inputs: torch.Tensor) -> torch.Tensor:
         return fa_tape_eval_plain(tape, inputs)
     if device.type != "cuda":
         raise ValueError(f"fa_tape_eval: unsupported device {device}")
+    shared = shared_bytes(tape)
+    if shared > MAX_SHARED_BYTES:
+        raise ValueError(
+            f"fa_tape_eval: the tape's register file needs {shared} bytes of shared memory a block, "
+            f"more than {MAX_SHARED_BYTES}"
+        )
     lib = build.load_library()
     instrs, consts, outputs = tape.device_arrays(device)
-    tmp = torch.empty((max(tape.n_temps, 1), B, 8), dtype=torch.int32, device=device)
     out = torch.empty((len(tape.outputs), B, 8), dtype=torch.int32, device=device)
     rc = lib.h2a_fa_tape(
-        instrs.data_ptr(), instrs.shape[0], consts.data_ptr(),
-        inputs.data_ptr(), S, tmp.data_ptr(), outputs.data_ptr(),
+        instrs.data_ptr(), instrs.shape[0], consts.data_ptr(), len(tape.consts),
+        inputs.data_ptr(), S, tape.n_temps, outputs.data_ptr(),
         len(tape.outputs), out.data_ptr(), B, build.stream_ptr(device),
     )
     build.check(rc, "h2a_fa_tape")
@@ -185,10 +250,13 @@ def fa_tape_eval(tape: Tape, inputs: torch.Tensor) -> torch.Tensor:
 fa_tape_eval.launches = 0
 
 
-def field_algebra_fused(vk, b, B: int):
+def field_algebra_fused(vk, b, B: int, h_coeff_mont=None, known_mont=None):
     """(h_eval, x^n, x^n - 1) as (B, 8) canonical Montgomery Fr tensors for
-    the VerifierBatch `b`, through K2 on CUDA tensors."""
-    inputs = torch.stack(fa_gather(vk, b))
+    the VerifierBatch `b`, through K2 on CUDA tensors.  With the two (B, 8)
+    Montgomery vectors of the h_eval linearization, a fourth output: the
+    e-lane's scalar -(known + h_coeff * h_eval) as (B, 8) plain limbs."""
+    e_scalar = h_coeff_mont is not None
+    inputs = torch.stack(fa_gather(vk, b) + ([h_coeff_mont, known_mont] if e_scalar else []))
     if inputs.shape[1] != B:
         raise ValueError(f"batch holds {inputs.shape[1]} proofs, expected {B}")
-    return tuple(fa_tape_eval(fa_tape(vk), inputs))
+    return tuple(fa_tape_eval(fa_tape(vk, e_scalar), inputs))

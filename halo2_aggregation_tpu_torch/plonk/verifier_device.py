@@ -6,10 +6,11 @@ path (`verify_batch(aggregate=True)` -> `verify_algebra_fast`):
 1. host: `parse_proof` replays each transcript (`plonk/verifier.py`), then
    `batch_proofs` and `fast_prep_gathered` build the batch;
 2. device: `fast_device_gathered` -> `fast_device`: the fused field algebra
-   (kernel K2) gives h_eval, one batched scalar-mul runs over all
-   B x (M + 1) multiopen lanes including the e-lane (kernel K1, the
-   windowed ladder, or with `method="ladder"` kernel K8, the bit-serial
-   one), and per-component tree sums give each proof's quad (e, f, w, zw);
+   (kernel K2) gives h_eval and the e-lane's scalar, one batched scalar-mul
+   runs over all B x (M + 1) multiopen lanes including the e-lane (kernel
+   K1, the windowed ladder, or with `method="ladder"` kernel K8, the
+   bit-serial one), and one segmented sum (`csrc/jac_sum.cu`) gives each
+   proof's quad (e, f, w, zw);
 3. host: `check_aggregate` folds all quads into one pairing.
 
 `_multiopen_coefficients`, `synthetic_batch` and `aggregate_quads` /
@@ -32,7 +33,7 @@ from ..device import resolve_device
 from ..fields import G1_GEN, R
 from ..ops import curve_ops as co, field_ops as fo
 from ..ops.curve_ops import JacPoint
-from ..ops.ec_kernels import scalar_mul
+from ..ops.ec_kernels import jac_segment_sum, scalar_mul
 from ..ops.limbs import ints_to_np
 from ..oracle import curve as oc
 from ..oracle.pairing import multi_pairing_check_fast
@@ -302,35 +303,25 @@ def fast_device(
     vk: VerifyingKey, b: VerifierBatch, B: int, ms: tuple,
     lane_pts: JacPoint, lane_scalars, h_coeff_mont, known_mont, method: str = "win",
 ):
-    """Field algebra for h_eval (K2), ONE scalar-mul (K1, or K8 with
-    `method="ladder"`) over every multiopen lane plus the e-lane
-    (e = -(eval_known + h_coeff*h_eval)*G1), then per-component tree sums.
-    Returns {e, f, w, zw: JacPoint of (B, 8), h_eval: (B, 8)}."""
+    """Field algebra for h_eval and the e-lane's scalar (K2), ONE
+    scalar-mul (K1, or K8 with `method="ladder"`) over every multiopen lane
+    plus the e-lane (e = -(eval_known + h_coeff*h_eval)*G1), then ONE
+    segmented sum over each proof's lanes: the components w, zw, f and the
+    e-lane alone.  Returns {e, f, w, zw: JacPoint of (B, 8), h_eval: (B, 8)}."""
     device = b.x.device
-    h_eval, _, _ = field_algebra_fused(vk, b, B)
-
-    # e-lane scalar: -(eval_known + h_coeff * h_eval), decoded to plain
-    eval_multi = fo.add(fo.mont_mul(h_coeff_mont, h_eval, FR), known_mont, FR)
-    e_scalar = fo.from_mont(fo.neg(eval_multi, FR), FR)[:, None, :]
+    h_eval, _, _, e_scalar = field_algebra_fused(vk, b, B, h_coeff_mont, known_mont)
     g1 = _points([G1_GEN], device)
     all_pts = JacPoint(
         *(torch.cat((lp, g.expand(B, 1, 8)), 1) for lp, g in zip(lane_pts, g1))
     )
-    all_scalars = torch.cat((lane_scalars, e_scalar), 1)
+    all_scalars = torch.cat((lane_scalars, e_scalar[:, None, :]), 1)
     per_all = scalar_mul(all_pts, all_scalars, method)  # (B, M + 1, 8)
 
-    # w, zw, f: one tree sum over lanes, components padded with identities
-    m_max = max(ms)
-    coords = [c.clone() for c in co.jac_identity((m_max, len(ms), B), device)]
-    off = 0
-    for j, m in enumerate(ms):
-        for buf, src in zip(coords, per_all):
-            buf[:m, j] = src[:, off : off + m].transpose(0, 1)
-        off += m
-    sums = co.jac_sum(JacPoint(*coords))  # (3, B, 8)
-
-    quads = {name: JacPoint(*(c[j] for c in sums)) for j, name in enumerate(("w", "zw", "f"))}
-    quads["e"] = JacPoint(*(c[:, off] for c in per_all))
+    offsets = [0]
+    for m in (*ms, 1):
+        offsets.append(offsets[-1] + m)
+    sums = jac_segment_sum(per_all, offsets, lane_axis=1)  # (4, B, 8)
+    quads = {name: JacPoint(*(c[j] for c in sums)) for j, name in enumerate(("w", "zw", "f", "e"))}
     quads["h_eval"] = h_eval
     return quads
 

@@ -7,10 +7,13 @@ is evaluated by K2's plain version (`fa_tape_eval` on CPU tensors), by
 and the Pallas kernel's body `field_algebra_fused_emulated` (the
 `tests/test_fa_fused.py` pattern)."""
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
 
+from halo2_aggregation_tpu.fields import R
 from halo2_aggregation_tpu.models import simple_example as se
 from halo2_aggregation_tpu.plonk import kzg
 from halo2_aggregation_tpu.plonk import verifier_tpu as vt
@@ -18,6 +21,7 @@ from halo2_aggregation_tpu.plonk.fa_fused import fa_schedule as jax_fa_schedule
 from halo2_aggregation_tpu.plonk.fa_fused import field_algebra_fused_emulated
 from halo2_aggregation_tpu.plonk.keygen import keygen
 from halo2_aggregation_tpu.plonk.prover import create_proof
+from halo2_aggregation_tpu.ops import field_ops as jfo
 from halo2_aggregation_tpu.plonk.verifier import parse_proof
 from halo2_aggregation_tpu_torch.convert import from_jax_batch, keys_from_reference
 from halo2_aggregation_tpu_torch.ops import field_ops as fo
@@ -25,6 +29,7 @@ from halo2_aggregation_tpu_torch.ops.limbs import jax_to_port
 from halo2_aggregation_tpu_torch.plonk import fa_fused as ff
 from halo2_aggregation_tpu_torch.plonk import verifier_device as vd
 from halo2_aggregation_tpu_torch.plonk.protocol_ops import (
+    OP_INV,
     IntInvOps,
     TapeOps,
     TorchLimbOps,
@@ -160,3 +165,97 @@ def test_synthetic_batch_matches_jax(setup, pvk):
         assert torch.equal(a, b)
     for p, q in zip(pb.h_comms + [pb.r_comm], jb.h_comms + [jb.r_comm]):
         assert all(torch.equal(c, d) for c, d in zip(p, q))
+
+
+@pytest.mark.parametrize("e_scalar", [False, True], ids=["three_outputs", "with_e_scalar"])
+def test_tape_has_one_inversion(pvk, e_scalar):
+    """Montgomery's trick in the program: the 2 + bf Lagrange denominators
+    and x^n - 1 share ONE `OP_INV`, and 3 products each but the first."""
+    tape = ff.fa_tape(pvk, e_scalar)
+    ops = tape.instrs[:, 0]
+    assert int((ops == OP_INV).sum()) == 1
+    assert tape.n_inputs == len(ff.fa_schedule(pvk)) + 2 * e_scalar
+    assert len(tape.outputs) == 3 + e_scalar
+    values = list(range(2, 2 + 8))
+    got = ff.batch_inv(IntInvOps(), values)
+    assert got == [pow(v, -1, R) for v in values]
+    assert ff.batch_inv(IntInvOps(), [5, 0, 7]) == [0, 0, 0]
+    assert ff.batch_inv(IntInvOps(), [9]) == [pow(9, -1, R)]
+
+
+def _zero_lane_xs(pvk):
+    """x = w^-i for every Lagrange index i = 0 .. bf + 1 (one denominator
+    zero, and x^n - 1 with it), then x^n = 1 outside them (only x^n - 1
+    zero), padded with one ordinary x to three batches of B."""
+    omega_inv = pow(pvk.omega, -1, R)
+    n_lagrange = 2 + pvk.cs.blinding_factors()
+    xs = [pow(omega_inv, i, R) for i in range(n_lagrange)]
+    xs += [pvk.omega, pow(pvk.omega, 5, R), R - 1]  # w^(n/2) = -1
+    xs += [12345] * (-len(xs) % B)
+    return xs, n_lagrange
+
+
+def test_zero_denominators_match_unbatched_program_and_jax(setup, pvk, monkeypatch):
+    """On lanes where a Lagrange denominator or x^n - 1 is zero, the
+    program with one batched inversion gives the same three outputs as the
+    program with one Fermat inversion a denominator (`batch_inv` replaced
+    by separate `inv`s), over host ints and through the tape on tensors,
+    and the same bits as the JAX `field_algebra`: h_eval = 0 there."""
+    vk, _, jb, pb = setup
+    xs, n_lagrange = _zero_lane_xs(pvk)
+    schedule = ff.fa_schedule(pvk)
+    host_in = [fo.FR.from_mont_tensor(a) for a in ff.fa_gather(pvk, pb)]
+    tape = ff.fa_tape(pvk)
+    for start in range(0, len(xs), B):
+        chunk = xs[start : start + B]
+        batched, unbatched = [], []
+        for lane, x in enumerate(chunk):
+            vals = {tag: host_in[j][lane] for j, tag in enumerate(schedule)}
+            vals[("x",)] = x
+            batched.append(ff.fa_program(IntInvOps(), pvk, vals))
+            with monkeypatch.context() as m:
+                m.setattr(ff, "batch_inv", lambda ops, values: [ops.inv(v) for v in values])
+                unbatched.append(ff.fa_program(IntInvOps(), pvk, vals))
+        assert batched == unbatched
+        for lane, x in enumerate(chunk):
+            if pow(x, pvk.n, R) == 1:
+                assert batched[lane] == (0, 1, 0), f"x = {x}"
+            else:
+                assert batched[lane][0] != 0
+        inputs = torch.stack(ff.fa_gather(pvk, pb)).clone()
+        inputs[0] = fo.FR.to_mont_tensor(chunk, "cpu")
+        out = ff.fa_tape_eval(tape, inputs)
+        assert [tuple(fo.FR.from_mont_tensor(o)[lane] for o in out) for lane in range(B)] == batched
+        jbx = dataclasses.replace(jb, x=vt._scalars_to_batch(chunk))
+        for g, w in zip(out, vt.field_algebra(vk, jbx, B)):
+            assert np.array_equal(g.numpy(), jax_to_port(np.asarray(w)))
+    assert n_lagrange == 7
+
+
+def test_e_scalar_output_matches_plain_ops_and_jax(setup, pvk, jax_outputs):
+    """K2's fourth output: the plain limbs of -(known + h_coeff * h_eval),
+    equal to `from_mont(neg(add(mont_mul(...))))` of the port's field ops
+    and of the JAX package's (`verifier_tpu.fast_device`'s e-lane scalar);
+    the first three outputs are those of the three-output tape."""
+    vk, parsed, jb, pb = setup
+    _, _, hc, kn = vd.fast_prep_gathered(pvk, parsed, "cpu")
+    _, _, jhc, jkn = vt.fast_prep_gathered(vk, parsed)
+    before = ff.fa_tape_eval.launches
+    h_eval, xn, xn1, e = ff.field_algebra_fused(pvk, pb, B, hc, kn)
+    assert ff.fa_tape_eval.launches == before
+    for g, w in zip((h_eval, xn, xn1), jax_outputs):
+        assert np.array_equal(g.numpy(), w)
+    want = fo.from_mont(fo.neg(fo.add(fo.mont_mul(hc, h_eval, fo.FR), kn, fo.FR), fo.FR), fo.FR)
+    assert torch.equal(e, want)
+    jh = vt.field_algebra(vk, jb, B)[0]
+    jwant = jfo.from_mont(jfo.neg(jfo.add(jfo.mont_mul(jhc, jh, jfo.FR), jkn, jfo.FR), jfo.FR), jfo.FR)
+    assert np.array_equal(e.numpy(), jax_to_port(np.asarray(jwant)))
+    # over host ints: the same scalar, as the value mod r
+    host_in = [fo.FR.from_mont_tensor(a) for a in ff.fa_gather(pvk, pb) + [hc, kn]]
+    tags = ff.fa_schedule(pvk) + ff.E_TAGS
+    for lane in range(B):
+        vals = {tag: host_in[j][lane] for j, tag in enumerate(tags)}
+        h, _, _, e_int = ff.fa_program_e(IntInvOps(), pvk, vals)
+        plain = -(vals[("known",)] + vals[("h_coeff",)] * h) % R
+        assert e_int == plain * pow(1 << 256, -1, R) % R
+        assert int.from_bytes(e[lane].numpy().tobytes(), "little") == plain

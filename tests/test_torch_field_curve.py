@@ -140,6 +140,13 @@ def test_double_and_add_match_jax_and_oracle():
     got_add = co.jac_to_ints(co.jac_add(p, q))
     assert got_add == jco.jac_to_ints(jco.jac_add(jp, jq))
     assert got_add == [oc.g1_add(a, b) for a, b in zip(pts, qts)]
+    # jac_eq: the same elements in other representatives, and other elements
+    twice = co.jac_add(p, p)
+    assert co.jac_eq(twice, co.jac_double(p)).all() and not torch.equal(twice.z, p.z)
+    assert not co.jac_eq(twice, p).any()
+    ident = co.jac_identity((6,), "cpu")
+    assert co.jac_eq(ident, co.JacPoint(p.x, p.y, torch.zeros_like(p.z))).all()
+    assert not co.jac_eq(ident, p).any()
 
 
 def test_add_edge_cases_match_jax():
@@ -164,6 +171,55 @@ def test_jac_sum_matches_jax():
     for pt in pts:
         acc = oc.g1_add(acc, pt)
     assert got == want == [acc]
+
+
+@pytest.mark.parametrize("lane_axis", [0, 1], ids=["lanes_first", "batch_first"])
+def test_jac_segment_sum_matches_jax(lane_axis):
+    """The plain segmented sum against the JAX `jac_segment_sum` (one scan
+    over segment ids) and `jac_sum` a segment, as affine points: 9 lanes of
+    B = 2 in segments of 3, 0, 3 and 3 lanes, with an identity lane and a
+    point beside its negation; an empty segment is the identity (1, 1, 0).
+    The wrapper gives a CPU tensor the plain version and counts no launch."""
+    from halo2_aggregation_tpu_torch.ops import ec_kernels as ek
+
+    offsets = [0, 3, 3, 6, 9]  # equal lengths: one compile of the JAX jac_sum
+    M, Bn = offsets[-1], 2
+    rows = [_rand_points(M) for _ in range(Bn)]
+    rows[0][3] = None
+    rows[1][6], rows[1][7] = rows[1][8], oc.g1_neg(rows[1][8])
+    flat = [rows[b][i] for i in range(M) for b in range(Bn)]  # lanes first
+    p, jp = _both(flat)
+    p = co.JacPoint(*(c.reshape(M, Bn, 8) for c in p))
+    jp = jco.JacPoint(*(c.reshape(M, Bn, -1) for c in jp))
+    if lane_axis == 1:
+        p = co.JacPoint(*(c.transpose(0, 1) for c in p))  # a strided view
+    before = ek.jac_segment_sum.launches
+    got = ek.jac_segment_sum(p, offsets, lane_axis)
+    assert ek.jac_segment_sum.launches == before
+    assert got.x.shape == (4, Bn, 8)
+    seg_ids = np.repeat(np.arange(4), np.diff(offsets)).astype(np.int32)
+    js = jco.jac_segment_sum(jp, seg_ids, 4)
+    flat_ints = co.jac_to_ints(co.JacPoint(*(c.reshape(-1, 8) for c in got)))
+    assert flat_ints == jco.jac_to_ints(jco.JacPoint(*(np.asarray(c).reshape(4 * Bn, -1) for c in js)))
+    for j, (lo, hi) in enumerate(zip(offsets, offsets[1:])):
+        if lo == hi:
+            want = [None] * Bn
+        else:
+            seg = jco.jac_sum(jco.JacPoint(*(c[lo:hi] for c in jp)))
+            want = jco.jac_to_ints(seg)
+        assert flat_ints[j * Bn : (j + 1) * Bn] == want
+        assert want == [_fold(rows[b][lo:hi]) for b in range(Bn)]
+    ident = co.jac_identity((Bn,), "cpu")
+    assert all(torch.equal(c[1], i) for c, i in zip(got, ident))
+    with pytest.raises(ValueError):
+        co.jac_segment_sum(p, [0, 3, 2], lane_axis)
+
+
+def _fold(pts):
+    acc = None
+    for pt in pts:
+        acc = oc.g1_add(acc, pt)
+    return acc
 
 
 def test_identity_and_affine_codec():

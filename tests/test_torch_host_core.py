@@ -1,10 +1,11 @@
 """The kernels' arithmetic on the host: g++ builds `csrc/field.cuh`,
-`curve.cuh` (with the mixed add), K1's and K8's lane functions, the tape
-interpreter of K2 and K6, the NTT butterflies, stage index maps, fused
-passes and power-series element of K3-K5 (`ntt.cuh`), and the per-thread sort, walk,
-fold and Horner of K7 and K9 (`msm.cuh`) through `csrc/host_shim.cpp`, and
-each is checked against its plain PyTorch version, exactly (points as
-affine points)."""
+`curve.cuh` (with the mixed add), K1's scalar split and two-half lane and
+K8's lane, the tape interpreter of K2 and K6 with K2's shared-memory
+register file, the segmented sum's per-thread code and tree (`jac_sum.cuh`),
+the NTT butterflies, stage index maps, fused passes and power-series element
+of K3-K5 (`ntt.cuh`), and the per-thread sort, walk, fold and Horner of K7
+and K9 (`msm.cuh`) through `csrc/host_shim.cpp`, and each is checked against
+its plain PyTorch version, exactly (points as affine points)."""
 
 import ctypes
 import shutil
@@ -15,9 +16,11 @@ import torch
 
 from halo2_aggregation_tpu.fields import Q, R
 from halo2_aggregation_tpu.oracle import curve as oc
+from halo2_aggregation_tpu.oracle import glv
 from halo2_aggregation_tpu_torch.ops import build
 from halo2_aggregation_tpu_torch.ops import curve_ops as co
 from halo2_aggregation_tpu_torch.ops import field_ops as fo
+from halo2_aggregation_tpu_torch.ops.ec_kernels import glv_constants, glv_split
 from halo2_aggregation_tpu_torch.ops.limbs import ints_to_tensor, tensor_to_ints
 
 torch.set_num_threads(1)  # tiny tensors; the test workers share the cores
@@ -97,6 +100,22 @@ def test_add_sub_carry_chain(lib, field):
     assert tensor_to_ints(out[1][1]) == [(x - y) % p for x, y in zip(xs, ys)]
 
 
+@pytest.mark.parametrize("field", ["Fq", "Fr"])
+def test_inverse_sliding_window(lib, field):
+    """`fe_inv`, the Fermat inverse by a sliding window over the exponent,
+    equals the plain inverse and a^(p - 2) on host ints; 0 maps to 0."""
+    spec, p = (fo.FQ, Q) if field == "Fq" else (fo.FR, R)
+    rng = np.random.default_rng(0x1A7 + len(field))
+    xs = [0, 1, 2, p - 1, p - 2, (1 << 256) % p] + [int.from_bytes(rng.bytes(40), "little") % p for _ in range(58)]
+    a = ints_to_tensor(xs, "cpu")
+    out = torch.empty_like(a)
+    lib.h2a_host_inv(int(field == "Fr"), _ptr(a), _ptr(out), len(xs))
+    assert torch.equal(out, fo.inv(a, spec))
+    rinv = pow(1 << 256, -1, p)
+    assert tensor_to_ints(out) == [pow(x * rinv % p, p - 2, p) * (1 << 256) % p for x in xs]
+    assert tensor_to_ints(out)[0] == 0
+
+
 def test_jac_add_edge_cases(lib):
     g = oc.g1_generator()
     rnd = _rand_points(4)
@@ -112,35 +131,109 @@ def test_jac_add_edge_cases(lib):
     assert got == [oc.g1_add(a, b) for a, b in zip(pts, qts)]
 
 
-def test_windowed_scalar_mul(lib):
-    pts = _rand_points(6) + [None, oc.g1_generator()]
-    ks = [int.from_bytes(RNG.bytes(32), "little") % R for _ in range(5)] + [(1 << 256) - 1, 9, 0]
+GLV = torch.from_numpy(glv_constants().view(np.int32))  # K1's split constants
+
+
+def _host_ec_win(lib, pts, ks):
+    """K1's two-half lane on every lane -> (Jacobian out, affine ints)."""
     P = _points(pts)
     s = ints_to_tensor(ks, "cpu")
     out = co.JacPoint(*(torch.empty_like(c) for c in P))
-    lib.h2a_host_ec_win(*(_ptr(c) for c in P), _ptr(s), *(_ptr(c) for c in out), len(pts))
-    got = co.jac_to_ints(out)
+    lib.h2a_host_ec_win(*(_ptr(c) for c in P), _ptr(s), _ptr(GLV), *(_ptr(c) for c in out), len(pts))
+    return P, s, out, co.jac_to_ints(out)
+
+
+def _host_split(lib, ks):
+    """K1's scalar split -> [(s1, s2)] signed halves."""
+    s = ints_to_tensor(ks, "cpu")
+    mags = torch.empty((len(ks), 2, 8), dtype=torch.int32)
+    negs = torch.empty((len(ks), 2), dtype=torch.int32)
+    lib.h2a_host_glv_split(_ptr(s), _ptr(GLV), _ptr(mags), _ptr(negs), len(ks))
+    m = tensor_to_ints(mags.reshape(-1, 8))
+    sg = negs.reshape(-1).tolist()
+    assert set(sg) <= {0, 1}
+    return [(-m[2 * i] if sg[2 * i] else m[2 * i], -m[2 * i + 1] if sg[2 * i + 1] else m[2 * i + 1])
+            for i in range(len(ks))]
+
+
+def test_windowed_scalar_mul(lib):
+    pts = _rand_points(6) + [None, oc.g1_generator()]
+    ks = [int.from_bytes(RNG.bytes(32), "little") % R for _ in range(5)] + [(1 << 256) - 1, 9, 0]
+    P, s, out, got = _host_ec_win(lib, pts, ks)
     assert got == co.jac_to_ints(co.scalar_mul(P, s))
     assert got == [oc.g1_mul(p, k) if p else None for p, k in zip(pts, ks)]
     assert (out.z[6:] == 0).all() and (out.z[:6] != 0).any(-1).all()
 
 
-def test_tape_interpreter(lib):
+# scalars whose halves meet in the last add: s = 2 a (mod r) for a short
+# lattice vector (a, b) splits into (a, -b), and a = -b lambda (mod r)
+_GLV_EDGE = [0, 1, R - 1, R, R + 1, (1 << 256) - 1, 2, 15, 16, 1 << 128, glv.LAMBDA, R - glv.LAMBDA] + [
+    sign * 2 * v[0] % R for v in (glv._V1, glv._V2) for sign in (1, -1)
+]
+
+
+def test_glv_split_identity_and_bound(lib):
+    """K1's scalar split on 10^5 random scalars below 2^256 and on the edge
+    values: s1 + s2 lambda = s (mod r), |s1| and |s2| below 2^132 (the 33
+    windows of a half), and the halves the constants were made for: within
+    a basis vector of `oracle/glv.decompose`'s."""
+    rng = np.random.default_rng(0x61F)
+    raw = rng.integers(0, 1 << 32, size=(100_000, 8), dtype=np.uint64).astype(np.uint32)
+    ks = tensor_to_ints(torch.from_numpy(raw.view(np.int32))) + _GLV_EDGE
+    halves = _host_split(lib, ks)
+    worst = 0
+    for k, (s1, s2) in zip(ks, halves):
+        assert (s1 + s2 * glv.LAMBDA - k) % R == 0, k
+        worst = max(worst, abs(s1), abs(s2))
+    assert worst < 1 << (4 * 33)
+    assert halves[-500:] == [glv_split(k) for k in ks[-500:]]  # the host mirror of the split
+    assert worst.bit_length() <= glv.GLV_BITS + 1
+    assert halves[len(ks) - len(_GLV_EDGE)] == (0, 0) and halves[len(ks) - len(_GLV_EDGE) + 3] == (0, 0)
+    (a1, b1), (a2, b2) = glv._V1, glv._V2
+    for k, (s1, s2) in list(zip(ks, halves))[-200:]:
+        sg1, m1, sg2, m2 = glv.decompose(k)
+        d1, d2 = s1 - sg1 * m1, s2 - sg2 * m2
+        assert (d1, d2) in {(i * a1 + j * a2, i * b1 + j * b2) for i in (-1, 0, 1) for j in (-1, 0, 1)}
+
+
+def test_glv_lane_cases(lib):
+    """K1's two-half lane against `oracle.curve.g1_mul` on the edge
+    scalars (0, 1, r - 1, r, r + 1, 2^256 - 1, ...), identity points, zero
+    scalars, and scalars whose two halves give the same point, so that the
+    last add doubles."""
+    ks = list(_GLV_EDGE)
+    pts = _rand_points(len(ks))
+    pts[6], pts[9] = None, oc.g1_generator()
+    ks += [0, 5, int.from_bytes(RNG.bytes(32), "little")]
+    pts += [pts[0], None, pts[1]]
+    _, _, out, got = _host_ec_win(lib, pts, ks)
+    assert got == [oc.g1_mul(p, k % R) if p else None for p, k in zip(pts, ks)]
+    one = fo.narrow(fo.FQ.wide("cpu").one)
+    for i, g in enumerate(got):
+        if g is None:
+            assert torch.equal(out.x[i], one) and torch.equal(out.y[i], one) and not out.z[i].any()
+    halves = _host_split(lib, ks)
+    doubling = [k for k, (s1, s2) in zip(ks, halves) if s1 and (s1 - s2 * glv.LAMBDA) % R == 0]
+    assert doubling, "no lane's halves met in the doubling branch of the last add"
+
+
+@pytest.fixture(scope="module")
+def vk9():
+    """The simple example's vk at k = 9 as the port's own class."""
     from halo2_aggregation_tpu.models import simple_example as se
     from halo2_aggregation_tpu.plonk import kzg
     from halo2_aggregation_tpu.plonk.keygen import keygen
     from halo2_aggregation_tpu_torch.convert import keys_from_reference
-    from halo2_aggregation_tpu_torch.plonk import fa_fused as ff
-    from halo2_aggregation_tpu_torch.plonk.verifier_device import synthetic_batch
 
     params = kzg.setup(9)
     circuit = se.MyCircuit(constant=7, a=2, b=3)
     cs_e, _, asg_e = se.build(circuit.without_witnesses(), k=9)
-    vk = keys_from_reference(keygen(params, cs_e, asg_e)[0])
-    lanes = 2
-    batch = synthetic_batch(vk, lanes, "cpu", seed=11)
-    tape = ff.fa_tape(vk)
-    inputs = torch.stack(ff.fa_gather(vk, batch)).contiguous()
+    return keys_from_reference(keygen(params, cs_e, asg_e)[0])
+
+
+def _host_tape(lib, tape, inputs):
+    """The tape over `TapeRegs`, registers in (host) device memory."""
+    lanes = inputs.shape[1]
     instrs, consts, outputs = tape.device_arrays("cpu")
     tmp = torch.zeros((tape.n_temps, lanes, 8), dtype=torch.int32)
     out = torch.empty((len(tape.outputs), lanes, 8), dtype=torch.int32)
@@ -148,9 +241,102 @@ def test_tape_interpreter(lib):
         _ptr(instrs), instrs.shape[0], _ptr(consts), _ptr(inputs), tape.n_inputs,
         _ptr(tmp), _ptr(outputs), len(tape.outputs), _ptr(out), lanes,
     )
+    return out
+
+
+def test_tape_interpreter(lib, vk9):
+    from halo2_aggregation_tpu_torch.plonk import fa_fused as ff
+    from halo2_aggregation_tpu_torch.plonk.verifier_device import synthetic_batch
+
+    lanes = 2
+    batch = synthetic_batch(vk9, lanes, "cpu", seed=11)
+    tape = ff.fa_tape(vk9)
+    inputs = torch.stack(ff.fa_gather(vk9, batch)).contiguous()
+    out = _host_tape(lib, tape, inputs)
     want = ff.fa_tape_eval_plain(tape, inputs)
     assert torch.equal(out, want)
     assert tensor_to_ints(out[0]) != [0, 0]
+
+
+@pytest.mark.parametrize("e_scalar", [False, True], ids=["three_outputs", "with_e_scalar"])
+def test_tape_shared_register_file(lib, vk9, e_scalar):
+    """K2's lane over `SharedTapeRegs` ([register][limb][lane] for a block
+    of 32 lanes, inputs copied in once) equals the lane over `TapeRegs` and
+    the plain version, on 70 lanes: two full blocks and a ragged one."""
+    from halo2_aggregation_tpu_torch.plonk import fa_fused as ff
+    from halo2_aggregation_tpu_torch.plonk.verifier_device import synthetic_batch
+
+    lanes = 70
+    batch = synthetic_batch(vk9, lanes, "cpu", seed=12)
+    tape = ff.fa_tape(vk9, e_scalar)
+    cols = ff.fa_gather(vk9, batch) + ([batch.y, batch.x] if e_scalar else [])
+    inputs = torch.stack(cols).contiguous()
+    instrs, consts, outputs = tape.device_arrays("cpu")
+    out = torch.empty((len(tape.outputs), lanes, 8), dtype=torch.int32)
+    lib.h2a_host_fa_tape_shared(
+        _ptr(instrs), instrs.shape[0], _ptr(consts), _ptr(inputs), tape.n_inputs, tape.n_temps,
+        _ptr(outputs), len(tape.outputs), _ptr(out), lanes, ff.LANES_PER_BLOCK,
+    )
+    assert torch.equal(out, _host_tape(lib, tape, inputs))
+    assert torch.equal(out[:, :8], ff.fa_tape_eval_plain(tape, inputs[:, :8].contiguous()))
+    assert ff.shared_bytes(tape) == 4 * (
+        4 * instrs.shape[0] + 8 * len(tape.consts) + (tape.n_inputs + tape.n_temps) * 8 * 32
+    ) <= ff.MAX_SHARED_BYTES
+
+
+@pytest.mark.parametrize("lane_axis", [0, 1], ids=["lanes_first", "batch_first"])
+def test_jac_segment_sum_lanes(lib, lane_axis):
+    """The segmented sum as its warps run it (32 partial sums a segment,
+    then the tree) on segments of 0, 1, 31, 32, 33 and 70 lanes of B = 2
+    batch elements, in both layouts, against the plain version and the
+    oracle as affine points.  The lanes hold identities, a point twice in
+    one thread's run and twice across the tree (the doubling branch), and
+    a point with its negation (the cancelling branch)."""
+    lens = [0, 1, 31, 32, 33, 70]
+    offsets = [0]
+    for m in lens:
+        offsets.append(offsets[-1] + m)
+    M, Bn = offsets[-1], 2
+    base = _rand_points(24)
+    rng = np.random.default_rng(0x5E6 + lane_axis)
+    pts = [[base[int(rng.integers(len(base)))] for _ in range(M)] for _ in range(Bn)]
+    for row in pts:
+        for i in range(3, M, 11):
+            row[i] = None  # identities
+    o31, o32, o33, o70 = offsets[2], offsets[3], offsets[4], offsets[5]
+    pts[0][offsets[1]] = None                                # a segment that is one identity
+    pts[0][o33], pts[0][o33 + 32] = base[0], base[0]         # twice in thread 0's run
+    pts[0][o32 + 1], pts[0][o32 + 17] = base[1], base[1]     # twice across the tree
+    pts[1][o32 + 2], pts[1][o32 + 18] = base[2], oc.g1_neg(base[2])  # cancels in the tree
+    pts[1][o70 + 5], pts[1][o70 + 37] = base[3], oc.g1_neg(base[3])  # cancels in a thread's run
+    pts[1][o31 : o31 + 31] = [base[4], oc.g1_neg(base[4])] * 15 + [None]  # sums to the identity
+    flat = _points([p for row in pts for p in row])
+    P = co.JacPoint(*(c.reshape(Bn, M, 8) for c in flat))
+    if lane_axis == 0:
+        P = co.JacPoint(*(c.transpose(0, 1).contiguous() for c in P))
+    offs = torch.tensor(offsets, dtype=torch.int32)
+    out = co.JacPoint(*(torch.empty((len(lens), Bn, 8), dtype=torch.int32) for _ in range(3)))
+    lib.h2a_host_jac_segment_sum(
+        *(_ptr(c) for c in P), P.x.stride(1 - lane_axis), P.x.stride(lane_axis),
+        _ptr(offs), len(lens), Bn, *(_ptr(c) for c in out),
+    )
+    got = co.jac_to_ints(co.JacPoint(*(c.reshape(-1, 8) for c in out)))
+    want = co.jac_segment_sum(P, offsets, lane_axis)
+    assert got == co.jac_to_ints(co.JacPoint(*(c.reshape(-1, 8) for c in want)))
+    expect = []
+    for j in range(len(lens)):
+        for b in range(Bn):
+            acc = None
+            for p in pts[b][offsets[j] : offsets[j + 1]]:
+                acc = oc.g1_add(acc, p)
+            expect.append(acc)
+    assert got == expect
+    assert expect[0] is None and expect[2] is None and expect[2 * 2 + 1] is None
+    one = fo.narrow(fo.FQ.wide("cpu").one)
+    for coords in (out, want):
+        for i in (0, 1, 2, 5):  # empty segments, the identity lane, the cancelled segment
+            x, y, z = (c.reshape(-1, 8)[i] for c in coords)
+            assert torch.equal(x, one) and torch.equal(y, one) and not z.any()
 
 
 def _rand_stack(rng, c, n) -> torch.Tensor:
