@@ -22,9 +22,10 @@ nonzero before the last line):
      threads) at the main path's 4,608 lanes against its plain version
      (affine equality), 16 lanes against the oracle, a ragged lane count
      against the full launch at two block shapes, and 2^17 lanes against K8
-     on the same lanes and the oracle on a sample; K8 (bit-serial ladder) on
-     the 4,608 lanes at 256 bits against K1 and its plain version, and
-     ragged against full; the segmented Jacobian sum at the main path's
+     on the same lanes, each on its own sample against the oracle; K8 (a
+     joint double-and-add over K1's split) on the 4,608 lanes at 256 bits
+     against K1 and its plain version (the bit-serial ladder), and ragged
+     against full; the segmented Jacobian sum at the main path's
      shape (128 proofs, segments of 4, 4, 27 and 1 lanes) and at ragged
      segment lengths in both layouts against its plain version (affine
      equality);
@@ -41,7 +42,9 @@ nonzero before the last line):
      piece of the device step;
   5. ntt: the device's Montgomery product alone on 2^20 random pairs and
      the edge values, for Fq and Fr, against the plain PyTorch product; K3
-     and K4 at k = 1, 5, 9, 13 and 16 on 2 random columns and K4, K5 and K3
+     and K4 at k = 1, 5, 9, 13 and 16 on 2 random columns, K5's power series
+     at k = 1, 5, 9, 16 and 21 in both orders (two launches a call), and K4,
+     K5 and K3
      at k = 21 on 4 against their plain versions (bit for bit), each
      transform in `len(pass_plan(k))` launches, intt(ntt(x)) == x, and one
      column's coset evaluations through K4 -> K5 -> K3 against the native
@@ -50,7 +53,9 @@ nonzero before the last line):
      outer proof's size) through `DeviceQuotient` (feed, finalize, 4
      cosets), K6 against its plain version on the first, last and random
      4,096-row windows and on every row, timings and peak memory;
-  7. msm: `DeviceSRS` at n = 2^21 (the outer proof's size): K7 and K9
+  7. msm: `kzg.setup(21)` on the host and with `device` (its 2^21
+     fixed-base products through K1), equal; `DeviceSRS` at n = 2^21 (the
+     outer proof's size): K7 and K9
      commitments of a random column, an all-zero column (None) and a
      one-hot column (that SRS point) equal the native host MSM's, with the
      SRS upload, kernel and host times and peak memory; at the prove's
@@ -80,6 +85,7 @@ from __future__ import annotations
 
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -372,7 +378,10 @@ def phase_k1(device):
         "chain_products": K1_CHAIN, "chain_field": "Fq",
     }
     k8 = phase_k8(P, s, got, pts, ks)
-    rec.update(k1_large_launch(device, P, pts, rng))
+    large_k1, large_k8 = k1_large_launch(device, P, pts, rng)
+    rec.update(large_k1)
+    k8.update(large_k8)
+    emit({"phase": "k8_large", **large_k8})
     emit({
         "phase": "k1", "lanes": n, "doubling_cases": n_doubling, "oracle_lanes": 16,
         "ragged_blocks": [0, 32, 128], "tolerance": "exact: equal affine points", **rec,
@@ -380,17 +389,18 @@ def phase_k1(device):
     return rec, k8, out
 
 
-def k1_large_launch(device, P, pts, rng, log_n: int = 17) -> dict:
-    """K1 at 2^log_n lanes (the 4,608 points repeated, fresh random
-    scalars below 2^256), where the launcher takes the occupancy call's
-    block: every lane equal to K8's over 256 bits as a group element, and a
-    sample equal to the oracle."""
+def k1_large_launch(device, P, pts, rng, log_n: int = 17) -> tuple:
+    """K1 and K8 at 2^log_n lanes (the 4,608 points repeated, fresh random
+    scalars below 2^256), where both launchers take the occupancy call's
+    block: every lane of K1 equal to K8's over 256 bits as a group element,
+    and a sample of each equal to the oracle (K1 and K8 share the split, so
+    each is held to it on its own lanes).  Returns K1's and K8's fields."""
     import numpy as np
     import torch
 
     from halo2_aggregation_tpu_torch.fields import R
     from halo2_aggregation_tpu_torch.ops import curve_ops as co
-    from halo2_aggregation_tpu_torch.ops.ec_kernels import scalar_mul_ladder, scalar_mul_win
+    from halo2_aggregation_tpu_torch.ops.ec_kernels import ladder_block, scalar_mul_ladder, scalar_mul_win
     from halo2_aggregation_tpu_torch.ops.limbs import tensor_to_ints
     from halo2_aggregation_tpu_torch.oracle import curve as oc
 
@@ -399,38 +409,88 @@ def k1_large_launch(device, P, pts, rng, log_n: int = 17) -> dict:
     big = co.JacPoint(*(c[idx].contiguous() for c in P))
     raw = rng.integers(0, 1 << 32, size=(n, 8), dtype=np.uint64).astype(np.uint32)
     s = torch.from_numpy(raw.view(np.int32)).to(device)
-    out = scalar_mul_win(big, s)
-    ref = scalar_mul_ladder(big, s, 256)
-    same = co.jac_eq(out, ref)
+    outs = {"K1": scalar_mul_win(big, s), "K8": scalar_mul_ladder(big, s, 256)}
+    same = co.jac_eq(*outs.values())
     if not bool(same.all()):
         raise AssertionError(f"K1 != K8 on {int((~same).sum())} of 2^{log_n} lanes, "
                              f"first {(~same).nonzero()[:8].flatten().tolist()}")
-    sample = [int(i) for i in rng.integers(0, n, size=8)]
-    pick = torch.tensor(sample, device=device)
-    got = co.jac_to_ints(co.JacPoint(*(c[pick] for c in out)))
-    ks = tensor_to_ints(s[pick].cpu())
-    want = [oc.g1_mul(pts[i % len(pts)], k % R) if pts[i % len(pts)] is not None else None
-            for i, k in zip(sample, ks)]
-    if got != want:
-        raise AssertionError(f"K1 at 2^{log_n} lanes != oracle g1_mul on the sampled lanes {sample}")
+    ks = tensor_to_ints(s.cpu())
+    for name, out in outs.items():
+        sample = [int(i) for i in rng.integers(0, n, size=8)]
+        pick = torch.tensor(sample, device=device)
+        got = co.jac_to_ints(co.JacPoint(*(c[pick] for c in out)))
+        want = [oc.g1_mul(pts[i % len(pts)], ks[i] % R) if pts[i % len(pts)] is not None else None
+                for i in sample]
+        if got != want:
+            raise AssertionError(f"{name} at 2^{log_n} lanes != oracle g1_mul on the sampled lanes {sample}")
     key = "2^%d" % log_n
     # nearly every digit of a random half is nonzero: count them all
     products = n * (2 * ((4 + 128) * P_DOUBLE + (3 + 32) * P_ADD) + 1 + P_ADD)
-    return {
+    rounds = k8_rounds(ks)
+    live = [pts[i % len(pts)] is not None for i in range(n)]
+    k1 = {
         "ms_at_" + key: cuda_ms(lambda: scalar_mul_win(big, s), reps=2),
         "bound_ms_at_" + key: bound(products, n * 32 * 7)["bound_ms"],
-        "ladder_ms_at_" + key: cuda_ms(lambda: scalar_mul_ladder(big, s, 256), reps=2),
-        "equal_to_k8_at_" + key: True, "oracle_lanes_at_" + key: len(sample),
+        "equal_to_k8_at_" + key: True, "oracle_lanes_at_" + key: 8,
     }
+    k8 = {
+        "ms_at_" + key: cuda_ms(lambda: scalar_mul_ladder(big, s, 256), reps=2),
+        "bound_ms_at_" + key: bound(k8_products(rounds, live), n * 32 * 7)["bound_ms"],
+        "chain_products_at_" + key: k8_chain(rounds), "block_at_" + key: ladder_block(n),
+        "equal_to_k1_at_" + key: True, "oracle_lanes_at_" + key: 8,
+    }
+    return k1, k8
+
+
+def k8_rounds(ks, nbits: int = 256) -> list:
+    """[(rounds, adds)] of K8's lanes for these scalars: the split's halves
+    of the masked scalar (`glv_split`, the host mirror of the kernel's), the
+    rounds after the first below the top bit of the longer half, and an add
+    for every nonzero bit pair below it."""
+    from halo2_aggregation_tpu_torch.ops.ec_kernels import glv_split
+
+    out = []
+    for k in ks:
+        m1, m2 = (abs(h) for h in glv_split(k % (1 << nbits)))
+        top = max(m1.bit_length(), m2.bit_length())
+        out.append((max(top - 1, 0), max(bin(m1 | m2).count("1") - 1, 0)))
+    return out
+
+
+def k8_setup_products() -> int:
+    """The products of a K8 lane before its rounds: beta X, the full add
+    P' + Q', then the one inversion that makes P' and P' + Q' affine and the
+    12 products around it."""
+    from halo2_aggregation_tpu_torch.fields import Q
+
+    return 1 + P_ADD + inv_products(Q) + 12
+
+
+def k8_products(rounds, live) -> int:
+    """Montgomery products K8 needs for lanes of `rounds` (`k8_rounds`) on
+    the lanes where `live` (the point is not the identity and the scalar
+    not 0 mod r): the setup, a doubling a round and a mixed add a nonzero
+    pair."""
+    setup = k8_setup_products()
+    return sum(setup + r * P_DOUBLE + a * P_ADD_MIXED for (r, a), ok in zip(rounds, live) if ok)
+
+
+def k8_chain(rounds) -> int:
+    """The dependent products of one K8 thread on the longest lane: the
+    setup, then every round a doubling and a mixed add (a warp pays the add
+    of a round as soon as one of its lanes has a nonzero pair)."""
+    return k8_setup_products() + max(r for r, _ in rounds) * (P_DOUBLE + P_ADD_MIXED)
 
 
 def phase_k8(P, s, k1_affine, pts, ks):
     """K8 on K1's lanes over all 256 bits (the lanes hold 2^256 - 1):
-    affine-equal to K1 and to its plain version; ragged equals full."""
+    affine-equal to K1 and to its plain version, the bit-serial ladder;
+    ragged equals full."""
     import torch
 
+    from halo2_aggregation_tpu_torch.fields import R
     from halo2_aggregation_tpu_torch.ops import curve_ops as co
-    from halo2_aggregation_tpu_torch.ops.ec_kernels import scalar_mul_ladder
+    from halo2_aggregation_tpu_torch.ops.ec_kernels import ladder_block, scalar_mul_ladder
 
     n = P.x.shape[0]
     out = scalar_mul_ladder(P, s, 256)
@@ -446,20 +506,19 @@ def phase_k8(P, s, k1_affine, pts, ks):
         raise AssertionError(f"K8 != plain on {len(bad)} lanes, first {bad[:8]}")
     if got != k1_affine:
         raise AssertionError("K8 != K1 on the same lanes")
-    ms = cuda_ms(lambda: scalar_mul_ladder(P, s, 256), reps=3)
-    # a lane: 256 doublings, and an add for every set bit but the first
-    adds = sum(max(0, bin(k).count("1") - 1) for p, k in zip(pts, ks) if p is not None)
+    ms = cuda_ms(lambda: scalar_mul_ladder(P, s, 256), reps=5)
+    rounds = k8_rounds(ks)
+    live = [p is not None and k % R != 0 for p, k in zip(pts, ks)]
     rec = {
         "name": "ec_ladder", "route": "cuda",
         "source": "halo2_aggregation_tpu_torch/csrc/ec_ladder.cu",
         "replaces": "halo2_aggregation_tpu/ops/ec_pallas.py:317",
         "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-        **bound(n * 256 * P_DOUBLE + adds * P_ADD, n * 32 * (3 + 1 + 3)),
-        # a warp pays the add of a round as soon as one of its lanes has the bit
-        "chain_products": 256 * (P_DOUBLE + P_ADD), "chain_field": "Fq",
+        **bound(k8_products(rounds, live), n * 32 * (3 + 1 + 3)),
+        "chain_products": k8_chain(rounds), "chain_field": "Fq",
     }
-    emit({"phase": "k8", "lanes": n, "nbits": 256, "equal_to_k1": True,
-          "tolerance": "exact: equal affine points", **rec})
+    emit({"phase": "k8", "lanes": n, "nbits": 256, "block": ladder_block(n), "equal_to_k1": True,
+          "max_rounds": max(r for r, _ in rounds), "tolerance": "exact: equal affine points", **rec})
     return rec
 
 
@@ -660,7 +719,7 @@ def phase_main(params, vk, protos, device):
             raise AssertionError(f"quad of proof {i} != host verify_proof")
         host_quads.append(tuple(efw))
 
-    # the same path with the bit-serial ladder (K8) in place of K1
+    # the same path with K8 in place of K1
     scalar_mul_ladder.launches = 0
     t0 = time.perf_counter()
     ok_l, efws_l = verify_batch(params, vk, insts, proofs, device=device, aggregate=True, method="ladder")
@@ -888,6 +947,24 @@ def check_product(device, rng) -> dict:
     return {"pairs": n, "edge_pairs": len(pairs), "max_abs_err": out}
 
 
+def check_series(device, shift: int) -> list:
+    """K5's power series against its plain version at k = 1, 5, 9, 16 and
+    21 in both orders (bit for bit), each call two launches: the tables,
+    then the products."""
+    from halo2_aggregation_tpu_torch.ops import ntt as nt
+
+    one, base = nt.mont_tensor(1, device), nt.mont_tensor(shift, device)
+    for k in (1, 5, 9, 16, 21):
+        for bitrev in (False, True):
+            before = nt.pow_series.launches
+            got = nt.pow_series(shift, k, device, bitrev=bitrev)
+            if nt.pow_series.launches - before != 2:
+                raise AssertionError(f"K5 pow_series at k = {k}: {nt.pow_series.launches - before} launches, expected 2")
+            equal_or_raise(f"K5 pow_series, k = {k}, bitrev = {bitrev}", got,
+                           nt.pow_series_plain(one, base, k, bitrev))
+    return [1, 5, 9, 16, 21]
+
+
 def check_transforms(device, rng, k: int, cols: int) -> dict:
     """K3 and K4 on `cols` random columns of size 2^k against their plain
     versions, each in `len(pass_plan(k))` launches."""
@@ -932,6 +1009,7 @@ def phase_ntt(device, k: int = 21, cols: int = 4):
     errs = {}
     product = check_product(device, rng)
     small = [check_transforms(device, rng, kk, 2) for kk in (1, 5, 9, 13, 16)]
+    series_ks = check_series(device, shift)
     passes = len(nt.pass_plan(k))
     reset_ntt_launches()
 
@@ -962,22 +1040,31 @@ def phase_ntt(device, k: int = 21, cols: int = 4):
         raise AssertionError("K4 -> K5 -> K3 coset evaluations != NativeDomain.coset_evals")
 
     work = x.clone()
+    sq = nt.pow_series_squares(shift, k, device)
+    series_tables = nt.pow_series_tables(sq, k, True)
     ms = {
         "ntt": cuda_ms(lambda: nt.ntt_batched(work, tables.fwd), reps=3),
         "intt": cuda_ms(lambda: nt.intt_batched(work, tables.inv, tables.n_inv), reps=3),
         "ew_mul_col": cuda_ms(lambda: nt.ew_mul_col(work, scale, out=work), reps=5),
         "ew_mul_scalar": cuda_ms(lambda: nt.ew_mul_scalar(work, s, out=work), reps=5),
-        "pow_series": cuda_ms(lambda: nt.pow_series(shift, k, device, bitrev=True), reps=5),
+        # the series' two launches on the uploaded squares, then each alone,
+        # then the whole call (the host's squares and their upload included)
+        "pow_series": cuda_ms(lambda: nt.pow_series_products(nt.pow_series_tables(sq, k, True), k), reps=20),
+        "pow_series_tables": cuda_ms(lambda: nt.pow_series_tables(sq, k, True), reps=20),
+        "pow_series_products": cuda_ms(lambda: nt.pow_series_products(series_tables, k), reps=20),
+        "pow_series_call": cuda_ms(lambda: nt.pow_series(shift, k, device, bitrev=True), reps=20),
     }
     torch.cuda.synchronize()
     # the power series: the least work for n powers is one product an
-    # element, and n elements written (the kernel spends up to 2 k an element)
+    # element, and n elements written (the kernel spends one an element and
+    # at most ceil(k / 2) an entry of its 2^ceil(k/2) + 2^floor(k/2) tables)
     series = bound(n, n * 32 + 64)
     emit({
         "phase": "ntt", "k": k, "columns": cols, "tolerance": "exact: equal bits",
         "max_abs_err": errs, "roundtrip": True, "host_coset_column_equal": True,
         "fe_mul_equal_to_plain": product, "small_k_equal_to_plain": small,
         "pass_plan": nt.pass_plan(k), "launches_a_transform": passes,
+        "series_equal_to_plain": series_ks, "series_launches_a_call": 2,
         # the widest pass: shared memory a block, blocks an SM
         "occupancy": {"ntt": nt.pass_occupancy(False, k), "intt": nt.pass_occupancy(True, k)},
         "kernel_ms": ms, "plain_ms": {"ntt": ntt_plain_ms, "intt": intt_plain_ms, "ew_mul_col": ew_plain_ms},
@@ -1003,7 +1090,8 @@ def phase_ntt(device, k: int = 21, cols: int = 4):
                "ms": ms["ew_mul_col"], "plain_ms": ew_plain_ms,
                **bound(cols * n, 2 * col_bytes + n * 32),
                "pow_series_ms": ms["pow_series"], "pow_series_bound_ms": series["bound_ms"],
-               "pow_series_bound_by": series["bound_by"]},
+               "pow_series_bound_by": series["bound_by"], "pow_series_tables_ms": ms["pow_series_tables"],
+               "pow_series_products_ms": ms["pow_series_products"], "pow_series_call_ms": ms["pow_series_call"]},
     }
 
 
@@ -1152,6 +1240,21 @@ def phase_msm(device, k: int = 21, k_edge: int = 14, k_prove: int = 16) -> dict:
     t0 = time.perf_counter()
     params = kzg.setup(k)
     setup_s = time.perf_counter() - t0
+    # the same SRS with its 2^k fixed-base products through K1 on the card;
+    # a cache of its own, so that the host's file is not read back
+    host_cache, kzg.CACHE_DIR = kzg.CACHE_DIR, os.path.join(ROOT, "build", "h2a-params-device")
+    shutil.rmtree(kzg.CACHE_DIR, ignore_errors=True)
+    try:
+        t0 = time.perf_counter()
+        params_d = kzg.setup(k, device=device)
+        setup_device_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(kzg.CACHE_DIR, ignore_errors=True)
+        kzg.CACHE_DIR = host_cache
+    if not (np.array_equal(params_d.g_lagrange_u64, params.g_lagrange_u64)
+            and np.array_equal(params_d.g_lagrange_inf, params.g_lagrange_inf)):
+        raise AssertionError(f"kzg.setup({k}, device) != the host SRS")
+    del params_d
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(device)
     t0 = time.perf_counter()
@@ -1268,7 +1371,8 @@ def phase_msm(device, k: int = 21, k_edge: int = 14, k_prove: int = 16) -> dict:
         }
     emit({
         "phase": "msm", "k": k, "n": n, "tolerance": "exact: equal affine points",
-        "equal_to_native": list(cases), "setup_s": setup_s, "srs_upload_to_mont_s": upload_s,
+        "equal_to_native": list(cases), "setup_s": setup_s, "setup_device_s": setup_device_s,
+        "setup_device_equal_to_host": True, "srs_upload_to_mont_s": upload_s,
         "native_host_msm_s": native_s, "kernel_ms": kernel_ms, "recode_ms": recode_ms,
         "commit_s": commit_s,
         # the chosen C, the blocks an SM holds and the waves the grid fills

@@ -23,7 +23,8 @@
 // identity (1, 1, 0) and stores.  The block is one warp while the launch is
 // short (under two waves of the occupancy call's block), so that the warps
 // spread evenly over every SM, and the size the occupancy call gives (at
-// most 256 threads) above that; the ragged edge is a bounds check.
+// most 256 threads) above that (ec_win.cuh::choose_lane_block, which K8
+// shares); the ragged edge is a bounds check.
 //
 // The contract gains one clause over the TPU kernel's: the points are on
 // the curve (phi is [lambda] only there).
@@ -71,29 +72,11 @@ __global__ void ec_win_kernel(const uint32_t* __restrict__ px,
   store_fe(oz + off, r.z);
 }
 
-// The block size for n lanes: one warp while the launch is less than two
-// waves of the block the occupancy call gives (small blocks spread a short
-// launch evenly over the SMs: at 2^14 lanes on an H100 0.98 ms against 1.50
-// with that block), above that the occupancy call's block, capped at 256
-// threads (at 2^17 lanes 7.83 ms against 8.37 with its 384).
-int choose_block(int n, int* threads) {
-  int min_grid = 0, block = 0;
-  cudaError_t err =
-      cudaOccupancyMaxPotentialBlockSize(&min_grid, &block, ec_win_kernel, 0, 0);
-  if (err != cudaSuccess) return (int)err;
-  if (2ll * n < 2ll * min_grid * block) {
-    *threads = 32;
-  } else {
-    *threads = block < 256 ? block : 256;
-  }
-  return 0;
-}
-
 }  // namespace
 
 // The block size the launcher takes for n lanes, into *threads.
 extern "C" int h2a_ec_win_block(int n, int* threads) {
-  return choose_block(n, threads);
+  return choose_lane_block(ec_win_kernel, 2ll * n, threads);
 }
 
 // Launches on `stream`; returns cudaGetLastError() (0 on success).  consts:
@@ -106,7 +89,7 @@ extern "C" int h2a_ec_win(const uint32_t* px, const uint32_t* py,
   if (n <= 0) return 0;
   if (threads < 0 || threads % 32) return (int)cudaErrorInvalidValue;
   if (threads == 0) {
-    int rc = choose_block(n, &threads);
+    int rc = h2a_ec_win_block(n, &threads);
     if (rc != 0) return rc;
   }
   unsigned blocks = (unsigned)((2ll * n + threads - 1) / threads);

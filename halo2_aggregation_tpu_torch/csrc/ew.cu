@@ -4,19 +4,25 @@
 // Replaces halo2_aggregation_tpu/ops/ntt_pallas.py::_ew_mul_kernel (:179,
 // via ew_mul_u8 :288: a batch times a shared column, the coset shift
 // powers) and ::_ew_mul_scalar_kernel (:419, via ew_mul_scalar_u8 :402: a
-// batch times one scalar, 1/n and the coset points).  The third entry
-// point replaces pow_series_u8 (:436), which ran the scalar kernel once
-// per exponent bit with an XLA select between: here thread i computes
-// start * base^idx(i) by square-and-multiply, idx(i) = i or the k-bit
-// reversal of i.
+// batch times one scalar, 1/n and the coset points).  The power series
+// replaces pow_series_u8 (:436), which ran the scalar kernel once per
+// exponent bit with an XLA select between.
 //
 // Layout: (..., 8) int32 elements, canonical Montgomery in and out; one
 // thread per element; in place is allowed (each thread reads its element
 // before it writes it).
 //
 // What bounds it on the H100: the products are device-memory bound (one
-// Montgomery product per 64 bytes moved); pow_series is compute bound (up
-// to 2k products per element, nothing read).
+// Montgomery product per 64 bytes moved).  The power series is one product
+// an element at its least; square-and-multiply a thread spent up to 2k
+// dependent ones (0.902 ms at k = 21 against a bound of 0.034).  Here it is
+// two launches (ntt.cuh): the first builds two tables of 2^ceil(k/2) and
+// 2^floor(k/2) entries from the host's k squares of the base, each entry
+// at most ceil(k/2) products; the second takes one product an element of
+// an entry of each (both tables together 96 KB at k = 21, read through L1
+// and L2) and writes it with 16-byte stores, in a grid-strided loop.  On an
+// NVIDIA H100 80GB HBM3 (700 W) at k = 21: 0.052 ms, the tables 0.009 and
+// the products 0.043, where square-and-multiply a thread took 0.76.
 //
 // Two test entries measure fe_mul itself: h2a_mont_mul (one product an
 // element, held to the plain PyTorch product) and h2a_mul_chain (a chain of
@@ -50,15 +56,22 @@ __global__ void ew_mul_scalar_kernel(const uint32_t* x,
   st_fe(out + i * NL, fe_mul<Fr>(ld_fe(x + i * NL), ld_fe(s)));
 }
 
-// out[i] = start * base^idx(i) for i < 2^k.
-__global__ void pow_series_kernel(uint32_t* __restrict__ out,
-                                  const uint32_t* __restrict__ start,
-                                  const uint32_t* __restrict__ base, int k,
-                                  int bitrev) {
-  uint32_t i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= (1u << k)) return;
-  uint32_t e = (bitrev && k > 0) ? bit_reverse(i, k) : i;
-  st_fe(out + (size_t)i * NL, fe_pow_times(ld_fe(start), ld_fe(base), e, k));
+// The series' tables (ntt.cuh): entry e of `len`.
+__global__ void pow_series_tables_kernel(uint32_t* __restrict__ tables,
+                                         const uint32_t* __restrict__ sq,
+                                         int k, int bitrev, uint32_t len) {
+  uint32_t e = blockIdx.x * blockDim.x + threadIdx.x;
+  if (e >= len) return;
+  st_fe(tables + (size_t)e * NL, pow_series_table_entry(sq, k, bitrev, e));
+}
+
+// out[i] = TA[lo] * TB[hi] for i < 2^k, grid-strided.
+__global__ void pow_series_products_kernel(uint32_t* __restrict__ out,
+                                           const uint32_t* __restrict__ tables,
+                                           int k) {
+  uint32_t n = 1u << k, stride = gridDim.x * blockDim.x;
+  for (uint32_t i = blockIdx.x * blockDim.x + threadIdx.x; i < n; i += stride)
+    st_fe(out + (size_t)i * NL, pow_series_element(tables, k, i));
 }
 
 // out[i] = a[i] * b[i] in F: the device's fe_mul alone, for the check of
@@ -110,13 +123,36 @@ extern "C" int h2a_ew_mul_scalar(const uint32_t* x, const uint32_t* s,
   return (int)cudaGetLastError();
 }
 
-extern "C" int h2a_pow_series(uint32_t* out, const uint32_t* start,
-                              const uint32_t* base, int k, int bitrev,
-                              void* stream) {
+// The series' tables, pow_series_table_len(k) entries, from sq = (start,
+// base, base^2, base^4, .. base^(2^(k-1))): one thread an entry, one warp a
+// block, so that the few warps spread over the SMs.
+extern "C" int h2a_pow_series_tables(uint32_t* tables, const uint32_t* sq,
+                                     int k, int bitrev, void* stream) {
   if (k < 0 || k > 30) return (int)cudaErrorInvalidValue;
-  unsigned blocks = ((1u << k) + kThreads - 1) / kThreads;
-  pow_series_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
-      out, start, base, k, bitrev);
+  uint32_t len = pow_series_table_len(k);
+  pow_series_tables_kernel<<<(len + 31) / 32, 32, 0, (cudaStream_t)stream>>>(
+      tables, sq, k, bitrev, len);
+  return (int)cudaGetLastError();
+}
+
+// out[i] = start * base^idx(i) for i < 2^k from the tables: as many blocks
+// as the card holds at once, at most one an element block.
+extern "C" int h2a_pow_series_products(uint32_t* out, const uint32_t* tables,
+                                       int k, void* stream) {
+  if (k < 0 || k > 30) return (int)cudaErrorInvalidValue;
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, pow_series_products_kernel, kThreads, 0);
+  if (err != cudaSuccess) return (int)err;
+  long long need = ((1ll << k) + kThreads - 1) / kThreads;
+  long long fill = (long long)sms * (per_sm > 0 ? per_sm : 1);
+  unsigned blocks = (unsigned)(need < fill ? need : fill);
+  pow_series_products_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
+      out, tables, k);
   return (int)cudaGetLastError();
 }
 

@@ -1,9 +1,10 @@
 // Host build of the kernels' arithmetic: g++ compiles the same headers the
 // CUDA kernels use, so the CPU tests check K1's, K2's, K6's and K8's per-lane
-// code (K1's scalar split and two halves, K2's shared-memory register file),
-// the segmented sum's per-thread code and tree, the NTT butterflies, index
-// maps and fused passes of K3-K5, the mixed add and the per-thread bucket
-// pass, fold and Horner of K7 and K9 without a card
+// code (K1's scalar split and two halves, K2's shared-memory register file,
+// K8's joint double-and-add), the segmented sum's per-thread code and tree,
+// the NTT butterflies, index maps and fused passes of K3-K4, K5's power
+// series, the mixed add and the per-thread bucket pass, fold and Horner of
+// K7 and K9 without a card
 // (tests/test_torch_host_core.py).  Not part of the CUDA library.  Layouts
 // match the kernels': elements are 8 x 32-bit limbs.
 #include "ec_ladder.cuh"
@@ -157,15 +158,34 @@ void h2a_host_jac_add_mixed(const uint32_t* p, const uint32_t* x2,
   }
 }
 
-// K8's lane on every lane.
+// K8's lane on every lane.  consts: the 7 x 8 words of ec_win.cuh.
 void h2a_host_ec_ladder(const uint32_t* px, const uint32_t* py,
                         const uint32_t* pz, const uint32_t* scalars,
-                        uint32_t* ox, uint32_t* oy, uint32_t* oz, int n,
-                        int nbits) {
+                        const uint32_t* consts, uint32_t* ox, uint32_t* oy,
+                        uint32_t* oz, int n, int nbits) {
   for (int i = 0; i < n; i++) {
     size_t off = (size_t)NL * i;
     Jac P{load(px + off), load(py + off), load(pz + off)};
-    Jac r = ec_ladder_lane(P, scalars + off, nbits);
+    Jac r = ec_ladder_lane(P, scalars + off, nbits, consts);
+    store(ox + off, r.x);
+    store(oy + off, r.y);
+    store(oz + off, r.z);
+  }
+}
+
+// K8's rounds alone on given halves: mags (n, 2, 8) their magnitudes, negs
+// (n, 2) their signs (1: negative), beta Montgomery Fq.
+void h2a_host_ec_ladder_rounds(const uint32_t* px, const uint32_t* py,
+                               const uint32_t* pz, const uint32_t* mags,
+                               const int32_t* negs, const uint32_t* beta,
+                               uint32_t* ox, uint32_t* oy, uint32_t* oz,
+                               int n) {
+  for (int i = 0; i < n; i++) {
+    size_t off = (size_t)NL * i;
+    Jac P{load(px + off), load(py + off), load(pz + off)};
+    const uint32_t* m = mags + 2 * off;
+    Jac r = ec_ladder_rounds(P, m, negs[2 * i], m + NL, negs[2 * i + 1],
+                             load(beta));
     store(ox + off, r.x);
     store(oy + off, r.y);
     store(oz + off, r.z);
@@ -306,13 +326,18 @@ void h2a_host_ntt_tile_indices(int k, int s0, int r, uint32_t* out) {
       out[(size_t)block * elems + u] = ntt_tile_index(P, block, u);
 }
 
-// out[i] = start * base^idx(i), i < 2^k: K5's pow_series element.
-void h2a_host_pow_series(uint32_t* out, const uint32_t* start,
-                         const uint32_t* base, int k, int bitrev) {
-  for (uint32_t i = 0; i < (1u << k); i++) {
-    uint32_t e = (bitrev && k > 0) ? bit_reverse(i, k) : i;
-    store(out + (size_t)i * NL, fe_pow_times(load(start), load(base), e, k));
-  }
+// out[i] = start * base^idx(i), i < 2^k, as K5's two launches run it: every
+// entry of the tables from sq = (start, base, base^2, .. base^(2^(k-1))),
+// then every element from the tables.
+void h2a_host_pow_series(uint32_t* out, const uint32_t* sq, int k,
+                         int bitrev) {
+  uint32_t len = pow_series_table_len(k);
+  uint32_t* tables = new uint32_t[(size_t)len * NL];
+  for (uint32_t e = 0; e < len; e++)
+    store(tables + (size_t)e * NL, pow_series_table_entry(sq, k, bitrev, e));
+  for (uint32_t i = 0; i < (1u << k); i++)
+    store(out + (size_t)i * NL, pow_series_element(tables, k, i));
+  delete[] tables;
 }
 
 // K6's lane on the listed rows: out[j] = quotient numerator of rows[j].

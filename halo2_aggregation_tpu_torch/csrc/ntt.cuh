@@ -1,6 +1,6 @@
 // Radix-2 NTT butterflies, the fused passes' index maps and tile code, and
-// the power-series element for kernels K3 (forward NTT), K4 (inverse NTT)
-// and K5 (pow_series).  Shared by the CUDA kernels (ntt.cu, ew.cu) and the
+// the power series' tables and element for kernels K3 (forward NTT), K4
+// (inverse NTT) and K5 (pow_series).  Shared by the CUDA kernels (ntt.cu, ew.cu) and the
 // host build (host_shim.cpp).
 //
 // Counterpart of the butterfly math and index maps of
@@ -54,27 +54,15 @@ H2A_HD void dif_butterfly(Fe& lo, Fe& hi, const Fe& w) {
   hi = fe_mul<Fr>(d, w);
 }
 
-// The k-bit reversal of i (k >= 1).
+// The k-bit reversal of i < 2^k (0 for k == 0).
 H2A_HD uint32_t bit_reverse(uint32_t i, int k) {
 #ifdef __CUDA_ARCH__
-  return __brev(i) >> (32 - k);
+  return k ? __brev(i) >> (32 - k) : 0u;
 #else
   uint32_t r = 0;
   for (int b = 0; b < k; b++) r |= ((i >> b) & 1u) << (k - 1 - b);
   return r;
 #endif
-}
-
-// start * base^e for an exponent of `bits` bits, by square-and-multiply
-// from the low bit (Montgomery in and out, canonical).
-H2A_HD Fe fe_pow_times(const Fe& start, const Fe& base, uint32_t e,
-                       int bits) {
-  Fe acc = start, sq = base;
-  for (int b = 0; b < bits; b++) {
-    if ((e >> b) & 1u) acc = fe_mul<Fr>(acc, sq);
-    sq = fe_sqr<Fr>(sq);
-  }
-  return acc;
 }
 
 #ifdef __CUDACC__
@@ -113,6 +101,51 @@ H2A_HD void fe_store(uint32_t* p, const Fe& r) {
 #else
   for (int i = 0; i < NL; i++) p[i] = r.v[i];
 #endif
+}
+
+// ---------------------------------------------------------------------------
+// the power series out[i] = start * base^idx(i), i < 2^k (kernel K5)
+// ---------------------------------------------------------------------------
+//
+// i = hi 2^m + lo with m = ceil(k / 2), and out[i] = TA[lo] * TB[hi]:
+//   natural order   TA[lo] = start base^lo,
+//                   TB[hi] = base^(hi 2^m);
+//   bit-reversed    TA[lo] = start base^(rev_m(lo) 2^(k-m)),
+//                   TB[hi] = base^rev_(k-m)(hi),
+// since rev_k(i) = rev_m(lo) 2^(k-m) + rev_(k-m)(hi).  The squares
+// sq[1 + j] = base^(2^j), j < k, come from the host with sq[0] = start, so
+// an entry is at most ceil(k / 2) products over them.  The tables lie in
+// one array: TA's 2^m entries, then TB's 2^(k-m).
+
+H2A_HD int pow_series_low_bits(int k) { return (k + 1) / 2; }
+
+H2A_HD uint32_t pow_series_table_len(int k) {
+  int m = pow_series_low_bits(k);
+  return (1u << m) + (1u << (k - m));
+}
+
+// Entry e of the tables.
+H2A_HD Fe pow_series_table_entry(const uint32_t* sq, int k, int bitrev,
+                                 uint32_t e) {
+  int m = pow_series_low_bits(k);
+  bool low = e < (1u << m);
+  uint32_t j = low ? e : e - (1u << m);
+  int bits = low ? m : k - m;
+  uint32_t x = bitrev ? bit_reverse(j, bits) : j;
+  // the square of TA's bit 0 and of TB's
+  int off = low ? (bitrev ? k - m : 0) : (bitrev ? 0 : m);
+  Fe acc = low ? fe_load(sq) : fe_one<Fr>();
+  for (int b = 0; b < bits; b++)
+    if ((x >> b) & 1u) acc = fe_mul<Fr>(acc, fe_load(sq + (size_t)(1 + off + b) * NL));
+  return acc;
+}
+
+// Element i of the series from the tables: one product.
+H2A_HD Fe pow_series_element(const uint32_t* tables, int k, uint32_t i) {
+  int m = pow_series_low_bits(k);
+  Fe a = fe_load(tables + (size_t)(i & ((1u << m) - 1)) * NL);
+  Fe b = fe_load(tables + (size_t)((1u << m) + (i >> m)) * NL);
+  return fe_mul<Fr>(a, b);
 }
 
 // ---------------------------------------------------------------------------

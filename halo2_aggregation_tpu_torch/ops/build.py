@@ -46,8 +46,10 @@ _SIGNATURES = {
     "h2a_ec_win": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P],
     # n, threads (out): the block the launcher takes for n lanes
     "h2a_ec_win_block": [_I, _P],
-    # px, py, pz, scalars, ox, oy, oz, n, nbits, stream
-    "h2a_ec_ladder": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _P],
+    # px, py, pz, scalars, consts, ox, oy, oz, n, nbits, stream
+    "h2a_ec_ladder": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P],
+    # n, threads (out): the block the launcher takes for n lanes
+    "h2a_ec_ladder_block": [_I, _P],
     # tape, n_instr, consts, n_consts, in, n_in, n_tmp, out_regs, n_out, out,
     # lanes, stream
     "h2a_fa_tape": [_P, _I, _P, _I, _P, _I, _I, _P, _I, _P, _I, _P],
@@ -66,8 +68,10 @@ _SIGNATURES = {
     "h2a_mont_mul": [_I, _P, _P, _P, _I, _P],
     # field, a, b, out, blocks (of one warp), iters, stream
     "h2a_mul_chain": [_I, _P, _P, _P, _I, _I, _P],
-    # out, start, base, k, bitrev, stream
-    "h2a_pow_series": [_P, _P, _P, _I, _I, _P],
+    # tables, squares, k, bitrev, stream
+    "h2a_pow_series_tables": [_P, _P, _I, _I, _P],
+    # out, tables, k, stream
+    "h2a_pow_series_products": [_P, _P, _I, _P],
     # tape, n_instr, consts, in_src, in_rot, n_in, stack, x, uniforms, n,
     # out_reg, out, stream
     "h2a_quotient_tape": [_P, _I, _P, _P, _P, _I, _P, _P, _P, _I, _I, _P, _P],
@@ -189,7 +193,8 @@ def build_host_library(out_dir) -> ctypes.CDLL:
         "h2a_host_inv": [_I, _P, _P, _I],
         "h2a_host_glv_split": [_P, _P, _P, _P, _I],
         "h2a_host_jac_segment_sum": [_P, _P, _P, _L, _L, _P, _I, _I, _P, _P, _P],
-        "h2a_host_ec_ladder": [_P, _P, _P, _P, _P, _P, _P, _I, _I],
+        "h2a_host_ec_ladder": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I],
+        "h2a_host_ec_ladder_rounds": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I],
         "h2a_host_msm_sort": [_I, _P, _I, _I, _I, _P, _P],
         "h2a_host_msm_partials": [_I, _P, _P, _P, _I, _I, _P, _P, _P],
         "h2a_host_msm_horner": [_I, _P, _P],
@@ -198,7 +203,7 @@ def build_host_library(out_dir) -> ctypes.CDLL:
         "h2a_host_ntt_stage": [_P, _P, _I, _I, _I, _I],
         "h2a_host_ntt_pass": [_P, _P, _P, _I, _I, _I, _I, _I],
         "h2a_host_ntt_tile_indices": [_I, _I, _I, _P],
-        "h2a_host_pow_series": [_P, _P, _P, _I, _I],
+        "h2a_host_pow_series": [_P, _P, _I, _I],
         "h2a_host_quotient_rows": [_P, _I, _P, _P, _P, _I, _P, _P, _P, _I, _I, _P, _I, _P],
     }
     for name, argtypes in sigs.items():

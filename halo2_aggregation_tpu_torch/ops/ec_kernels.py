@@ -4,8 +4,9 @@ sum, with their wrappers.
 Counterpart of `halo2_aggregation_tpu/ops/ec_pallas.py::scalar_mul_auto`:
 K1 (`csrc/ec_win.cu`, the windowed `_win_kernel` + `_final_kernel` behind
 `scalar_mul_pallas_win`; plain version `curve_ops.scalar_mul`) and K8
-(`csrc/ec_ladder.cu`, the bit-serial `_ladder_kernel` behind
-`scalar_mul_pallas2`; plain version `curve_ops.scalar_mul_ladder`).
+(`csrc/ec_ladder.cu`, for the bit-serial `_ladder_kernel` behind
+`scalar_mul_pallas2` a joint double-and-add over K1's split; plain version
+`curve_ops.scalar_mul_ladder`, the bit-serial ladder).
 `scalar_mul` picks one by an explicit `method` where the JAX package read
 `H2A_PALLAS_WIN`.  `jac_segment_sum` (`csrc/jac_sum.cu`; plain version
 `curve_ops.jac_segment_sum`) is the counterpart of the `lax.scan`s
@@ -132,25 +133,38 @@ def scalar_mul_win(points: JacPoint, scalars: torch.Tensor, threads: int = 0) ->
 scalar_mul_win.launches = 0
 
 
+def _block(entry: str, n: int) -> int:
+    import ctypes
+
+    threads = ctypes.c_int(0)
+    build.check(getattr(build.load_library(), entry)(n, ctypes.byref(threads)), entry)
+    return threads.value
+
+
 def win_block(n: int) -> int:
     """The block size (threads) K1's launcher takes for n lanes on the
     current card: one warp for a short launch, the occupancy call's block
     (at most 256 threads) from two waves of it on."""
-    import ctypes
+    return _block("h2a_ec_win_block", n)
 
-    threads = ctypes.c_int(0)
-    build.check(build.load_library().h2a_ec_win_block(n, ctypes.byref(threads)), "h2a_ec_win_block")
-    return threads.value
+
+def ladder_block(n: int) -> int:
+    """The block size K8's launcher takes for n lanes, by K1's rule."""
+    return _block("h2a_ec_ladder_block", n)
 
 
 def scalar_mul_ladder(points: JacPoint, scalars: torch.Tensor, nbits: int = 254) -> JacPoint:
-    """s_i * P_i for the low `nbits` bits (1 .. 256; the JAX default 254)
-    of plain scalars, over any leading batch shape, by the bit-serial
-    double-and-add.  For scalars < 2^nbits its affine points equal
-    `scalar_mul_win`'s; the identity comes out as (1, 1, 0).
+    """(s_i mod 2^nbits) * P_i for plain scalars s_i and `nbits` in 1 .. 256
+    (the JAX default 254), over any leading batch shape.  The points are on
+    the curve: the kernel reduces the masked scalar mod r (G1 has cofactor
+    1) and splits it by the GLV endomorphism as K1 does, which is [lambda]
+    only there.  For scalars < 2^nbits its affine points equal
+    `scalar_mul_win`'s; the identity comes out as (1, 1, 0).  The launcher
+    sizes the block from the lanes (`ladder_block`).
 
     On a CUDA tensor this launches K8 (or raises); on a CPU tensor it runs
-    the plain version `curve_ops.scalar_mul_ladder`."""
+    the plain version `curve_ops.scalar_mul_ladder`, the bit-serial
+    double-and-add, which holds K8 independently of the split."""
     if not 1 <= nbits <= 256:
         raise ValueError(f"nbits = {nbits}: expected 1 .. 256")
     if _check_lanes(points, scalars, "scalar_mul_ladder") == "cpu":
@@ -160,7 +174,7 @@ def scalar_mul_ladder(points: JacPoint, scalars: torch.Tensor, nbits: int = 254)
     out = JacPoint(*(torch.empty_like(c) for c in points))
     rc = lib.h2a_ec_ladder(
         points.x.data_ptr(), points.y.data_ptr(), points.z.data_ptr(),
-        scalars.data_ptr(),
+        scalars.data_ptr(), _glv_constants_on(device).data_ptr(),
         out.x.data_ptr(), out.y.data_ptr(), out.z.data_ptr(),
         points.x.numel() // 8, nbits, build.stream_ptr(device),
     )

@@ -325,22 +325,57 @@ def ew_mul_scalar(x: torch.Tensor, s: torch.Tensor, out: torch.Tensor = None) ->
     return out
 
 
-def pow_series(base: int, k: int, device, start: int = 1, bitrev: bool = False) -> torch.Tensor:
-    """[start * base^idx(i)] for i < 2^k as an (n, 8) Montgomery tensor on
-    `device`; idx(i) = i, or the k-bit reversal of i when `bitrev` (the
-    coset scale of a bit-reversed coefficient stack)."""
-    device = torch.device(device)
-    start_t, base_t = mont_tensor(start, device), mont_tensor(base, device)
-    if _device_kind(start_t) == "cpu":
-        return pow_series_plain(start_t, base_t, k, bitrev)
-    out = torch.empty((1 << k, NL), dtype=torch.int32, device=device)
-    lib = build.load_library()
-    rc = lib.h2a_pow_series(
-        out.data_ptr(), start_t.data_ptr(), base_t.data_ptr(), k, int(bitrev), build.stream_ptr(device)
-    )
-    build.check(rc, "h2a_pow_series")
+def pow_series_squares(base: int, k: int, device, start: int = 1) -> torch.Tensor:
+    """(k + 1, 8) Montgomery Fr: start, then base^(2^j) for j < k, exact in
+    host ints: what K5's series tables are built from (`csrc/ntt.cuh`)."""
+    vals, sq = [int(start) % R], int(base) % R
+    for _ in range(k):
+        vals.append(sq)
+        sq = sq * sq % R
+    return fo.FR.to_mont_tensor(vals, device)
+
+
+def pow_series_tables(sq: torch.Tensor, k: int, bitrev: bool) -> torch.Tensor:
+    """The series' first launch: the tables TA (2^ceil(k/2) entries) and TB
+    (2^floor(k/2)) in one (len, 8) tensor, from `pow_series_squares`."""
+    _check(sq, "squares", (k + 1, NL))
+    m = (k + 1) // 2
+    tables = torch.empty(((1 << m) + (1 << (k - m)), NL), dtype=torch.int32, device=sq.device)
+    rc = build.load_library().h2a_pow_series_tables(
+        tables.data_ptr(), sq.data_ptr(), k, int(bitrev), build.stream_ptr(sq.device))
+    build.check(rc, "h2a_pow_series_tables")
+    pow_series.launches += 1
+    return tables
+
+
+def pow_series_products(tables: torch.Tensor, k: int) -> torch.Tensor:
+    """The series' second launch: out[i] = TA[lo] * TB[hi], i = hi 2^ceil(k/2)
+    + lo, one product an element."""
+    m = (k + 1) // 2
+    _check(tables, "tables", ((1 << m) + (1 << (k - m)), NL))
+    out = torch.empty((1 << k, NL), dtype=torch.int32, device=tables.device)
+    rc = build.load_library().h2a_pow_series_products(
+        out.data_ptr(), tables.data_ptr(), k, build.stream_ptr(tables.device))
+    build.check(rc, "h2a_pow_series_products")
     pow_series.launches += 1
     return out
+
+
+def pow_series(base: int, k: int, device, start: int = 1, bitrev: bool = False) -> torch.Tensor:
+    """[start * base^idx(i)] for i < 2^k (0 <= k <= 30) as an (n, 8)
+    Montgomery tensor on `device`; idx(i) = i, or the k-bit reversal of i
+    when `bitrev` (the coset scale of a bit-reversed coefficient stack).
+
+    On the card two launches: the tables, then one product an element
+    (`pow_series_tables`, `pow_series_products`)."""
+    if not 0 <= k <= 30:
+        raise ValueError(f"k = {k}: expected 0 .. 30")
+    device = torch.device(device)
+    if device.type == "cpu":
+        return pow_series_plain(mont_tensor(start, device), mont_tensor(base, device), k, bitrev)
+    if device.type != "cuda":
+        raise ValueError(f"unsupported device {device}")
+    return pow_series_products(pow_series_tables(pow_series_squares(base, k, device, start), k, bitrev), k)
 
 
 for _fn in (ntt_batched, intt_batched, ew_mul_col, ew_mul_scalar, pow_series):

@@ -32,7 +32,7 @@ from ..fields import R, fr_omega
 from ..ops import curve_ops as co
 from ..ops import field_ops as fo
 from ..ops.curve_ops import AffinePoint, JacPoint
-from ..ops.limbs import u64_to_port
+from ..ops.limbs import port_to_u64, u64_to_port
 from ..ops.msm import msm
 from ..oracle import curve as oc
 from ..utils.u64 import (
@@ -160,9 +160,11 @@ class Params:
             )
 
 
-def setup(k: int, seed: int = 0xE5BC0654) -> Params:
+def setup(k: int, seed: int = 0xE5BC0654, device=None) -> Params:
     """Toy (tau-known) setup, deterministic in (k, seed) — the analog of
-    `Setup::new(k, XorShiftRng(seed))`.  Caches to disk (npz)."""
+    `Setup::new(k, XorShiftRng(seed))`.  Caches to disk (npz).  With a
+    `device`, the fixed-base products above 2^10 points run there through
+    K1 (`ec_kernels.scalar_mul_win`); None keeps them on the host."""
     os.makedirs(CACHE_DIR, mode=0o700, exist_ok=True)
     cache = os.path.join(CACHE_DIR, f"params-{k}-{seed:x}.npz")
     if os.path.exists(cache):
@@ -192,8 +194,11 @@ def setup(k: int, seed: int = 0xE5BC0654) -> Params:
         s_m = native.fr_vec_binop(2, wi_m, 0, denom_m, 0, n)
         native.fr_vec_scale_inplace(s_m, engine.mont_scalar(tn1_over_n).reshape(-1))
         scalars_u64 = engine.from_mont(s_m)
-        base = ints_to_u64([g[0], g[1]]).reshape(-1)
-        aff, inf = native.g1_batch_mul_win(base, scalars_u64)
+        if device is None:
+            base = ints_to_u64([g[0], g[1]]).reshape(-1)
+            aff, inf = native.g1_batch_mul_win(base, scalars_u64)
+        else:
+            aff, inf = native.g1_normalize(_jac_to_u64(_device_g1_mul(g, scalars_u64, device)))
         params = Params(k, aff, inf, g2, s_g2)
     else:
         # L_i(tau) = omega^i (tau^n - 1) / (n (tau - omega^i))
@@ -204,16 +209,16 @@ def setup(k: int, seed: int = 0xE5BC0654) -> Params:
             denom = (tau - wi) % R
             scalars.append(wi * tn1 % R * pow(denom * n, -1, R) % R)
             wi = wi * omega % R
-        g_lagrange = _batch_g1_mul(g, scalars)
+        g_lagrange = _batch_g1_mul(g, scalars, device)
         params = Params.from_points(k, g_lagrange, g2, s_g2)
     params.save(cache)
     return params
 
 
-def _batch_g1_mul(base, scalars):
+def _batch_g1_mul(base, scalars, device=None):
     """Host-or-device batched fixed-base scalar mul for SRS generation."""
     n = len(scalars)
-    if n <= 1 << 10 or os.environ.get("H2A_DEVICE_MSM", "0") != "1":
+    if n <= 1 << 10 or device is None and os.environ.get("H2A_DEVICE_MSM", "0") != "1":
         from ..utils import native
 
         if native.available():
@@ -235,10 +240,37 @@ def _batch_g1_mul(base, scalars):
                 b += 1
             out.append(acc)
         return out
-    raise NotImplementedError(
-        "the device branch of setup's fixed-base scalar-mul "
-        "(H2A_DEVICE_MSM=1 above 2^10 points) is not ported"
-    )
+    if device is None:
+        raise ValueError(
+            "H2A_DEVICE_MSM=1: setup's fixed-base scalar-mul above 2^10 points "
+            "runs on the device given by its `device` argument, and none was given"
+        )
+    return co.jac_to_ints(_device_g1_mul(base, ints_to_u64(scalars), device))
+
+
+def _device_g1_mul(base, scalars_u64: np.ndarray, device) -> JacPoint:
+    """scalars[i] * base for an (n, 4) uint64 array of plain scalars, through
+    `ec_kernels.scalar_mul_win` on `device` (K1 on a card, its plain version
+    on the CPU): Jacobian points with Montgomery coordinates there."""
+    from ..ops.ec_kernels import scalar_mul_win
+
+    dev = resolve_device(device)
+    n = scalars_u64.shape[0]
+    g = co.affine_to_jac(co.affine_from_ints([base], dev))
+    points = JacPoint(*(c.expand(n, 8).contiguous() for c in g))
+    return scalar_mul_win(points, torch.from_numpy(u64_to_port(scalars_u64)).to(dev))
+
+
+def _jac_to_u64(p: JacPoint) -> np.ndarray:
+    """Montgomery Jacobian points -> the (n, 12) plain x || y || z uint64
+    rows `native.g1_normalize` takes, converted where they lie."""
+    cols = []
+    for c in p:
+        plain = torch.empty_like(c)
+        for i in range(0, c.shape[0], _TO_MONT_CHUNK):
+            plain[i : i + _TO_MONT_CHUNK] = fo.from_mont(c[i : i + _TO_MONT_CHUNK], fo.FQ)
+        cols.append(port_to_u64(plain.cpu()))
+    return np.concatenate(cols, axis=1)
 
 
 # ---------------------------------------------------------------------------

@@ -8,8 +8,8 @@ path (`verify_batch(aggregate=True)` -> `verify_algebra_fast`):
 2. device: `fast_device_gathered` -> `fast_device`: the fused field algebra
    (kernel K2) gives h_eval and the e-lane's scalar, one batched scalar-mul
    runs over all B x (M + 1) multiopen lanes including the e-lane (kernel
-   K1, the windowed ladder, or with `method="ladder"` kernel K8, the
-   bit-serial one), and one segmented sum (`csrc/jac_sum.cu`) gives each
+   K1, the windowed ladder, or with `method="ladder"` kernel K8, one joint
+   double-and-add over the same split), and one segmented sum (`csrc/jac_sum.cu`) gives each
    proof's quad (e, f, w, zw);
 3. host: `check_aggregate` folds all quads into one pairing.
 

@@ -12,7 +12,10 @@ object a line:
 * at `cols` columns of size 2^k: intt(ntt(x)) == x, the first 4 columns
   against the 4-column result, the time of each whole transform and of
   each pass alone (CUDA events, mean of 3 after a warm-up), the products a
-  second and the bytes a second each pass reaches.
+  second and the bytes a second each pass reaches;
+* one host-clocked call of each plain version on the card: K3 and K4 on
+  the `cols` columns, K5's scalar product on 4 columns and its power
+  series at 2^k (minutes at the defaults).
 
 A mismatch raises.  Exits 1 without a card.
 """
@@ -74,6 +77,33 @@ def check_transforms(nt, rng, k: int, cols: int, device) -> dict:
     if not torch.equal(inv, nt.intt_plain(x, tables.inv, tables.n_inv)):
         raise AssertionError(f"K4 != plain at k = {k}")
     return {"k": k, "columns": cols, "plan": plan, "launches": launches, "equal_to_plain": True}
+
+
+def host_ms(fn) -> float:
+    """Milliseconds of one call on the host clock, synchronised."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3
+
+
+def plain_times(nt, tables, x, k: int) -> dict:
+    """One call of each plain version on the card at the kernels' shapes:
+    K3 and K4 on the whole stack x, K5's scalar product on its first 4
+    columns and its power series at 2^k in bit-reversed order."""
+    s = nt.mont_tensor(5, x.device)
+    return {
+        "plain_ms": {
+            "ntt": host_ms(lambda: nt.ntt_plain(x, tables.fwd)),
+            "intt": host_ms(lambda: nt.intt_plain(x, tables.inv, tables.n_inv)),
+            "ew_mul_scalar_4_columns": host_ms(lambda: nt.mul_plain(x[:4], s)),
+            "pow_series": host_ms(lambda: nt.pow_series_plain(nt.mont_tensor(1, x.device), s, k, True)),
+        },
+        "columns": x.shape[0], "k": k,
+    }
 
 
 def main() -> int:
@@ -140,6 +170,7 @@ def main() -> int:
                 "g_products_per_s": products / ms / 1e6, "tb_per_s": 2 * cols * n * 32 / ms / 1e9,
             })
         emit(rec)
+    emit(plain_times(nt, tables, x, k))
     emit({"ok": True})
     return 0
 

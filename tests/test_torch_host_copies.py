@@ -88,8 +88,12 @@ REMOVED = {
         (77, 77, "Params._device_points, the JAX resident SRS"),
         (101, 102, "commit_lagrange's docstring: no H2A_DEVICE_MSM branch"),
         (123, 156, "the JAX device branch of Params._msm: the port's is DeviceSRS"),
-        (256, 264, "the JAX device branch of setup's _batch_g1_mul (raises "
-                   "NotImplementedError); DeviceSRS follows it"),
+        (181, 183, "setup's signature and docstring: the explicit `device`"),
+        (213, 214, "setup's fixed-base products at k >= 14: K1 on `device` where one is given"),
+        (225, 225, "setup passes `device` to _batch_g1_mul"),
+        (231, 234, "_batch_g1_mul's signature and host condition: the explicit `device`"),
+        (256, 264, "the JAX device branch of setup's _batch_g1_mul: K1 on `device` (a ValueError "
+                   "under H2A_DEVICE_MSM=1 without one), its helpers; DeviceSRS follows it"),
     ],
     "plonk/keygen.py": [
         (138, 170, "StaticPreload: the keygen-time upload for the TPU quotient"),

@@ -1,11 +1,12 @@
 """The kernels' arithmetic on the host: g++ builds `csrc/field.cuh`,
-`curve.cuh` (with the mixed add), K1's scalar split and two-half lane and
-K8's lane, the tape interpreter of K2 and K6 with K2's shared-memory
-register file, the segmented sum's per-thread code and tree (`jac_sum.cuh`),
-the NTT butterflies, stage index maps, fused passes and power-series element
-of K3-K5 (`ntt.cuh`), and the per-thread sort, walk, fold and Horner of K7
-and K9 (`msm.cuh`) through `csrc/host_shim.cpp`, and each is checked against
-its plain PyTorch version, exactly (points as affine points)."""
+`curve.cuh` (with the mixed add), K1's scalar split and two-half lane,
+K8's lane and its rounds on given halves, the tape interpreter of K2 and K6
+with K2's shared-memory register file, the segmented sum's per-thread code
+and tree (`jac_sum.cuh`), the NTT butterflies, stage index maps and fused
+passes of K3-K4 and K5's power series (`ntt.cuh`), and the per-thread sort,
+walk, fold and Horner of K7 and K9 (`msm.cuh`) through
+`csrc/host_shim.cpp`, and each is checked against its plain PyTorch
+version, exactly (points as affine points)."""
 
 import ctypes
 import shutil
@@ -432,15 +433,40 @@ def test_ntt_pass_plan(lib, k):
         assert np.array_equal(got.numpy().astype(np.int64), idx.ravel())
 
 
+def _host_pow_series(lib, base, k, start, bitrev):
+    """K5's series as its two launches run it: the tables, then the products."""
+    from halo2_aggregation_tpu_torch.ops import ntt as nt
+
+    sq = nt.pow_series_squares(base, k, "cpu", start)
+    out = torch.empty((1 << k, 8), dtype=torch.int32)
+    lib.h2a_host_pow_series(_ptr(out), _ptr(sq), k, int(bitrev))
+    return out
+
+
 @pytest.mark.parametrize("bitrev", [False, True])
 def test_pow_series_element(lib, bitrev):
     from halo2_aggregation_tpu_torch.ops import ntt as nt
 
     k = 6
-    start, base = nt.mont_tensor(5, "cpu"), nt.mont_tensor(R - 3, "cpu")
-    out = torch.empty((1 << k, 8), dtype=torch.int32)
-    lib.h2a_host_pow_series(_ptr(out), _ptr(start), _ptr(base), k, int(bitrev))
+    out = _host_pow_series(lib, R - 3, k, 5, bitrev)
     assert torch.equal(out, nt.pow_series(R - 3, k, "cpu", start=5, bitrev=bitrev))
+
+
+@pytest.mark.parametrize("bitrev", [False, True], ids=["natural", "bitrev"])
+@pytest.mark.parametrize("k", [0, 1, 2, 5, 11, 14])
+def test_pow_series_tables(lib, k, bitrev):
+    """The two tables of 2^ceil(k/2) and 2^floor(k/2) entries and one
+    product an element, against the plain select ladder over the k bits:
+    k = 0 and 1 (a table of one entry), 2, odd and even k."""
+    from halo2_aggregation_tpu_torch.ops import ntt as nt
+
+    base, start = int.from_bytes(RNG.bytes(32), "little") % R, 1 + k
+    out = _host_pow_series(lib, base, k, start, bitrev)
+    want = nt.pow_series_plain(nt.mont_tensor(start, "cpu"), nt.mont_tensor(base, "cpu"), k, bitrev)
+    assert torch.equal(out, want)
+    idx = (1 << k) - 1
+    last = nt.bit_reverse_indices(k)[idx] if bitrev and k else idx
+    assert tensor_to_ints(out[idx:])[0] == fo.FR.to_mont(start * pow(base, int(last), R) % R)
 
 
 def test_quotient_lane(lib):
@@ -486,19 +512,101 @@ def test_jac_add_mixed_edge_cases(lib):
     assert got == [oc.g1_add(p, q) for p, q in zip(pts, qts)]
 
 
+def _host_ladder(lib, pts, ks, nbits):
+    """K8's lane on every lane -> affine ints; also the plain version's."""
+    P = _points(pts)
+    s = ints_to_tensor(ks, "cpu")
+    out = co.JacPoint(*(torch.empty_like(c) for c in P))
+    lib.h2a_host_ec_ladder(*(_ptr(c) for c in P), _ptr(s), _ptr(GLV), *(_ptr(c) for c in out), len(pts), nbits)
+    return co.jac_to_ints(out), co.jac_to_ints(co.scalar_mul_ladder(P, s, nbits))
+
+
 @pytest.mark.parametrize("nbits", [254, 256])
 def test_ladder_lane(lib, nbits):
     pts = _rand_points(5) + [None, oc.g1_generator()]
     ks = [int.from_bytes(RNG.bytes(32), "little") % R for _ in range(4)] + [R - 1, 7, 0]
     if nbits == 256:
         ks[0] = (1 << 256) - 1
-    P = _points(pts)
-    s = ints_to_tensor(ks, "cpu")
-    out = co.JacPoint(*(torch.empty_like(c) for c in P))
-    lib.h2a_host_ec_ladder(*(_ptr(c) for c in P), _ptr(s), *(_ptr(c) for c in out), len(pts), nbits)
-    got = co.jac_to_ints(out)
-    assert got == co.jac_to_ints(co.scalar_mul_ladder(P, s, nbits))
+    got, plain = _host_ladder(lib, pts, ks, nbits)
+    assert got == plain
     assert got == [oc.g1_mul(p, k) if p else None for p, k in zip(pts, ks)]
+
+
+def _signed_halves(rng, want):
+    """A scalar below r whose split (`glv_split`) has halves of the signs
+    `want` ((s1 < 0, s2 < 0)), drawn from `rng`."""
+    while True:
+        k = int.from_bytes(rng.bytes(32), "little") % R
+        s1, s2 = glv_split(k)
+        if (s1 < 0, s2 < 0) == want:
+            return k
+
+
+@pytest.mark.parametrize("nbits", [130, 256])
+def test_ladder_joint_rounds(lib, nbits):
+    """The joint double-and-add over the halves of the split on the scalars
+    its design adds: r and r + 1 (reduced to 0 and 1), scalars with bits
+    above nbits (masked off), and halves of the signs the split gives (s1 <
+    0 and s2 < 0, s1 >= 0 > s2, s2 == 0); each equal to the plain bit-serial
+    version and to `oracle.curve.g1_mul` of the masked scalar."""
+    rng = np.random.default_rng(0x1AD + nbits)
+    ks = [R, R + 1, (1 << 256) - 1, (1 << 256) - (1 << 129) + 5, (1 << 256) - (1 << nbits) | 3, 12345]
+    ks += [_signed_halves(rng, (a, True)) for a in (False, True)]
+    pts = _rand_points(len(ks))
+    got, plain = _host_ladder(lib, pts, ks, nbits)
+    masked = [k % (1 << nbits) for k in ks]
+    assert masked[4] == 3 and (masked[3] != ks[3]) == (nbits < 256) and glv_split(12345) == (12345, 0)
+    assert got == plain
+    assert got == [oc.g1_mul(p, k % R) for p, k in zip(pts, masked)]
+    if nbits == 256:
+        assert got[0] is None and got[1] == pts[1]
+
+
+def _round_branches(s1, s2):
+    """Where the rounds on the halves (s1, s2) meet the accumulator's own
+    addend (doubling) or its negation (identity): [(kind, bit)], from the
+    halves' bits as the lane runs them (ec_ladder.cuh::ec_ladder_rounds)."""
+    g1, g2 = (1 if s1 >= 0 else -1), (1 if s2 >= 0 else -1)
+    m1, m2 = abs(s1), abs(s2)
+    out = []
+    for j in range(max(m1.bit_length(), m2.bit_length()) - 2, -1, -1):
+        acc = 2 * (g1 * (m1 >> j + 1) + g2 * glv.LAMBDA * (m2 >> j + 1)) % R
+        add = (g1 * (m1 >> j & 1) + g2 * glv.LAMBDA * (m2 >> j & 1)) % R
+        if add and acc == add:
+            out.append(("doubling", j))
+        if add and acc and (acc + add) % R == 0:
+            out.append(("identity", j))
+    return out
+
+
+def test_ladder_rounds_branches(lib):
+    """K8's rounds on chosen halves, against `oracle.curve.g1_mul` and the
+    plain bit-serial ladder of s1 + s2 lambda.  The kernel's own split never
+    meets these branches on points of the curve (G1 has prime order): halves
+    (s1, s2) whose last add finds the accumulator equal to its addend are
+    v + (2, 0) for the lattice vector v = (a1, b1) of the split, and the
+    split of s = 2 is (2, 0).  So they are forced here: v + (2, 0) doubles in
+    the last add, v and 2 v + (1, 0) meet the addend's negation (the
+    identity, then doubled and added to), and halves of both signs and of
+    unequal lengths run the generic rounds."""
+    (a1, b1), (a2, b2) = glv._V1, glv._V2
+    halves = [(a1 + 2, b1), (a1, b1), (2 * a1 + 1, 2 * b1), (-a2 - 2, -b2), (5, -(1 << 100) - 7),
+              (-(1 << 129) + 1, 3), (0, 1), (1, 0)]
+    kinds = [_round_branches(*h) for h in halves]
+    assert kinds[0] == [("doubling", 0)] and kinds[1] == [("identity", 0)] and ("identity", 1) in kinds[2]
+    assert glv_split(2) == (2, 0)
+    pts = _rand_points(len(halves))
+    P = _points(pts)
+    mags = ints_to_tensor([abs(h) for pair in halves for h in pair], "cpu")
+    negs = torch.tensor([[h < 0 for h in pair] for pair in halves], dtype=torch.int32)
+    out = co.JacPoint(*(torch.empty_like(c) for c in P))
+    lib.h2a_host_ec_ladder_rounds(*(_ptr(c) for c in P), _ptr(mags), _ptr(negs), _ptr(GLV[6].contiguous()),
+                                  *(_ptr(c) for c in out), len(pts))
+    got = co.jac_to_ints(out)
+    ks = [(s1 + s2 * glv.LAMBDA) % R for s1, s2 in halves]
+    assert got == [oc.g1_mul(p, k) for p, k in zip(pts, ks)]
+    assert got == co.jac_to_ints(co.scalar_mul_ladder(P, ints_to_tensor(ks, "cpu"), 256))
+    assert got[1] is None and got[0] == oc.g1_mul(pts[0], 2)
 
 
 def _msm_lanes(n, zero_rows=()):

@@ -335,3 +335,27 @@ def test_cuda_requests_raise_without_a_card(srs_cpu):
         mk.msm_bucket_s5(P.x, P.y, digits, 1)
     with pytest.raises(ValueError, match="CUDA"):
         mk.msm_bucket_u4(P.x, P.y, m.unsigned_windows(torch.zeros((params.n, 8), dtype=torch.int32)), 1)
+
+
+def test_setup_device_fixed_base_products(monkeypatch):
+    """`kzg.setup`'s device helper on a CPU tensor (the plain K1): n
+    fixed-base products of the generator equal `native.g1_batch_mul`, as
+    Jacobian points and through `native.g1_normalize` as the windowed
+    native products give them; `H2A_DEVICE_MSM=1` without a device raises a
+    ValueError that names the argument."""
+    from halo2_aggregation_tpu_torch.plonk import kzg as pkzg
+
+    g = oc.g1_generator()
+    ks = _rand_scalars(4) + EDGE_SCALARS
+    u64 = ints_to_u64(ks)
+    jac = pkzg._device_g1_mul(g, u64, "cpu")
+    want = native.g1_batch_mul(g, ks)
+    assert co.jac_to_ints(jac) == want
+    aff, inf = native.g1_normalize(pkzg._jac_to_u64(jac))
+    base = ints_to_u64([g[0], g[1]]).reshape(-1)
+    aff_n, inf_n = native.g1_batch_mul_win(base, u64)
+    assert np.array_equal(aff, aff_n) and np.array_equal(inf, inf_n)
+    assert u64_to_points(aff, inf) == want
+    monkeypatch.setenv("H2A_DEVICE_MSM", "1")
+    with pytest.raises(ValueError, match="`device`"):
+        pkzg._batch_g1_mul(g, [1] * ((1 << 10) + 1))
