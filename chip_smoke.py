@@ -10,7 +10,9 @@ one accumulator by `verify_batch(..., aggregate=True, device="cuda")`
 (with K1, then with K8), the SRS commitments of `DeviceSRS` at the outer
 proof's n = 2^21 (K7 and K9), and the prover's, `keygen_device` and
 `create_proof_device(..., device="cuda")` with the quotient and every
-commitment on the card.
+commitment on the card; then the aggregation product, the k = 21 outer
+proof of one inner proof (`tools/outer_prove.py::run_outer`), held byte for
+byte to `docs/artifacts/outer_n1_k21.*`.
 
 Phases (each prints on its own lines; any failure raises and exits
 nonzero before the last line):
@@ -71,7 +73,17 @@ nonzero before the last line):
      then `create_proof_device` sharing its `DeviceSRS`, byte-identical to
      `create_proof_native` in the same process and accepted by
      `verify_proof`, with K7 launched once per commitment and K3-K6
-     launched during the prove.
+     launched during the prove;
+  9. outer: `run_outer` at N = 1, k = 21 on the card (the inner proof at
+     k = 9, the outer circuit's 1.27M rows, `keygen_device` on its
+     assignment, `create_proof_device` with seed 1, the host
+     `verify_proof`), sharing the `msm` phase's `DeviceSRS`: public inputs,
+     vk, proof bytes, instance commitment and quad equal to
+     `docs/artifacts/outer_n1_k21.*`, the in-circuit quad equal to the host
+     verifier's; the outer proof through `verify_batch(aggregate=True)` at
+     B = 1 and 2 (accepted, quads equal) and with a byte flipped
+     (rejected); the stage split, peak device memory and each kernel's
+     launches in the phase (K3-K7, K2, K1 and the segmented sum, each > 0).
 Then one JSON line with the kernels' numbers (each with its launches on its
 path, its time, its plain version's time, its bound and `library_ms`: null,
 as no PyTorch call computes 256-bit modular arithmetic; the lane-serial
@@ -1217,7 +1229,8 @@ def phase_msm(device, k: int = 21, k_edge: int = 14, k_prove: int = 16) -> dict:
     versions and the native MSM (the kernels' records take these times);
     then at a ragged n near 2^k_edge against their plain versions on edge
     lanes.  Returns the two kernels' records (launches: the commitments of
-    the 2^k run)."""
+    the 2^k run) and the DeviceSRS of the 2^k points, for the `outer`
+    phase."""
     import numpy as np
     import torch
 
@@ -1387,7 +1400,7 @@ def phase_msm(device, k: int = 21, k_edge: int = 14, k_prove: int = 16) -> dict:
         "edge_plain_ms": {nm: r["edge_plain_ms"] for nm, r in records.items()},
         "edge_bound_ms": {nm: r["edge_bound_ms"] for nm, r in records.items()},
     })
-    return records
+    return records, srs
 
 
 def prove_commitments(cs) -> int:
@@ -1492,6 +1505,97 @@ def phase_prove(device, k: int = 16) -> dict:
     return launches
 
 
+def phase_outer(device, srs=None) -> dict:
+    """The aggregation product: `tools/outer_prove.py::run_outer` at N = 1,
+    k = 21 on the card (one inner proof, the outer circuit, keygen_device,
+    create_proof_device, the host verify_proof), held to
+    `docs/artifacts/outer_n1_k21.*`; then the outer proof through
+    `verify_batch(aggregate=True)` at B = 1 and 2, and with a byte flipped.
+    `srs` is the `msm` phase's DeviceSRS of the same SRS.  Returns the
+    launches of each kernel in this phase."""
+    import hashlib
+
+    import torch
+
+    from halo2_aggregation_tpu_torch.config import H2AConfig
+    from halo2_aggregation_tpu_torch.ops.ec_kernels import jac_segment_sum, scalar_mul_win
+    from halo2_aggregation_tpu_torch.plonk.fa_fused import fa_tape, fa_tape_eval, shared_bytes
+    from halo2_aggregation_tpu_torch.plonk.verifier_device import verify_batch
+    from halo2_aggregation_tpu_torch.tools.outer_prove import run_outer
+    from halo2_aggregation_tpu_torch.utils.artifacts import load_vk
+
+    stem = os.path.join(ROOT, "docs", "artifacts", "outer_n1_k21")
+    with open(stem + ".meta.json") as f:
+        meta = json.load(f)
+    with open(stem + ".proof", "rb") as f:
+        want_proof = f.read()
+    want_vk = load_vk(stem)
+    cfg = H2AConfig(k_inner=9, k_outer=meta["k"], num_proofs=1, constrained_fs=meta["constrained_fs"])
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    reset_ntt_launches()
+    reset_msm_launches()
+    t0 = time.perf_counter()
+    res = run_outer(cfg, device=device, srs=srs)
+    wall = time.perf_counter() - t0
+    launches = {**ntt_launches(), **msm_launches()}
+    vk, proof, pis = res["vk"], res["proof"], res["public_inputs"]
+    checks = {
+        "pis_equal_to_meta": pis == [int(v) for v in meta["public_inputs"]],
+        "quad_equal_to_host": res["in_circuit_quads"] == res["inner_quads"],
+        "vk_equal_to_artifact": (vk.hash_scalar() == want_vk.hash_scalar()
+                                 and vk.fixed_commitments == want_vk.fixed_commitments
+                                 and vk.sigma_commitments == want_vk.sigma_commitments),
+        "proof_equal_to_artifact": proof == want_proof,
+        "inst_comm_equal_to_meta": res["inst_comm"] == tuple(int(c) for c in meta["inst_comm"]),
+        "verified": res["verified"],
+        "efw_equal_to_meta": res["efw"] == tuple(tuple(int(c) for c in p) for p in meta["efw"]),
+    }
+
+    # the outer proof through the verifier's main path on the card
+    params = res["params"]
+    for fn in (scalar_mul_win, fa_tape_eval, jac_segment_sum):
+        fn.launches = 0
+    batch = {}
+    for b in (1, 2):
+        t = {}
+        t1 = time.perf_counter()
+        ok, quads = verify_batch(params, vk, [[pis]] * b, [proof] * b, device=device, aggregate=True, timings=t)
+        torch.cuda.synchronize()
+        t["wall"] = time.perf_counter() - t1
+        batch[f"B={b}"] = t
+        checks[f"verify_batch_b{b}_accepts"] = ok is True and [tuple(map(tuple, q)) for q in quads] == [res["efw"]] * b
+    bad = bytearray(proof)
+    bad[len(proof) - 64 * 5] ^= 1  # an evaluation: the transcript still parses
+    try:
+        ok_bad, _ = verify_batch(params, vk, [[pis]], [bytes(bad)], device=device, aggregate=True)
+        rejected = "check_failed" if ok_bad is False else None
+    except ValueError as e:
+        rejected = f"parse_raised: {e}"
+    checks["flipped_byte_rejected"] = rejected is not None
+    torch.cuda.synchronize()
+    launches.update(ec_win=scalar_mul_win.launches, fa_tape=fa_tape_eval.launches,
+                    jac_segment_sum=jac_segment_sum.launches)
+    tape = fa_tape(vk, e_scalar=True)  # K2's program for the outer vk
+    emit({
+        "phase": "outer", "circuit": "aggregation, one inner proof (SingleProofCircuit)", "k": cfg.k_outer,
+        "rows": res["rows"], **checks,
+        "proof_bytes": len(proof), "proof_sha256": hashlib.sha256(proof).hexdigest(),
+        "artifact_sha256": hashlib.sha256(want_proof).hexdigest(), "flipped_byte": rejected,
+        "k2_tape": {"instrs": int(tape.instrs.shape[0]), "temps": tape.n_temps, "shared_bytes": shared_bytes(tape)},
+        "wall_s": wall, "seconds": res["seconds"], "verify_batch_s": batch,
+        "peak_device_mib": torch.cuda.max_memory_allocated(device) / 2**20, "launches": launches,
+    })
+    failed = [name for name, ok in checks.items() if ok is not True]
+    if failed:
+        raise AssertionError(f"outer: {failed} false")
+    for name in ("ntt", "intt", "ew", "quotient_tape", "msm_s5", "ec_win", "fa_tape", "jac_segment_sum"):
+        if launches[name] < 1:
+            raise AssertionError(f"outer: {name} was not launched: {launches}")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -1539,15 +1643,22 @@ def main() -> int:
     done("ntt")
     recs["quotient_tape"] = phase_quotient(device)
     done("quotient")
-    msm_recs = phase_msm(device)
+    msm_recs, srs = phase_msm(device)
     done("msm")
     prove_launches = phase_prove(device)
     done("prove")
+    outer_launches = phase_outer(device, srs)
+    del srs
+    done("outer")
     emit({"phase_seconds": seconds, "total_s": sum(seconds.values())})
     for name, rec in recs.items():
         rec["launches"] = prove_launches[name]
     # K7 is on the prover's path; K9 on DeviceSRS(signed=False) in `msm`
     msm_recs["msm_s5"]["launches"] = prove_launches["msm_s5"]
+    # each kernel's launches in the `outer` phase: one k = 21 outer keygen,
+    # prove and instance commitment, then verify_batch at B = 1, 2 and 1
+    for rec in (k1, k2, *recs.values(), msm_recs["msm_s5"], k8, msm_recs["msm_u4"], js):
+        rec["launches_outer"] = outer_launches.get(rec["name"], 0)
     emit(card)  # once more, beside the numbers: the build's report is long
     emit({"kernels": [k1, k2, *recs.values(), msm_recs["msm_s5"], k8, msm_recs["msm_u4"], js]})
     loaded = sorted(m for m, v in sys.modules.items()

@@ -22,10 +22,13 @@ from .keygen import ProvingKey, VerifyingKey
 from .kzg import DeviceSRS, Params
 
 
-def keygen_device(params: Params, cs: ConstraintSystem, assignment: Assignment, *, device="cuda", srs=None):
+def keygen_device(params: Params, cs: ConstraintSystem, assignment: Assignment, *, device="cuda", srs=None,
+                  progress=None):
     """(vk, pk) as `keygen_native` builds them, with every commitment made
     on `device` by `srs` (a `DeviceSRS` of `params` on `device`, made here
-    when None; pass one to share its resident points with the prover)."""
+    when None; pass one to share its resident points with the prover).
+    `progress`, if given, is called with a message after each of its three
+    stages, as `create_proof_device` calls it."""
     device = resolve_device(device)
     if not engine.available():
         raise RuntimeError("native engine unavailable")
@@ -38,9 +41,12 @@ def keygen_device(params: Params, cs: ConstraintSystem, assignment: Assignment, 
     elif srs.device != device or srs.n != n:
         raise ValueError(f"srs of {srs.n} points on {srs.device}, expected {n} on {device}")
     fixed_plain = [engine.col_from_ints(col) for col in assignment.fixed]
+    log = progress or (lambda *_: None)
     fixed_comms = [srs.commit_lagrange(c) for c in fixed_plain]
+    log("fixed committed")
 
     cp, rp = assignment.build_permutation_arrays()
+    log("permutation arrays")
     omega_pows_m = engine.pow_series(engine.mont_scalar(fr_omega(k)), n)
     deltas = [1]
     for _ in range(len(cs.permutation_columns) - 1):
@@ -54,6 +60,7 @@ def keygen_device(params: Params, cs: ConstraintSystem, assignment: Assignment, 
         )
         sig_cols.append(engine.from_mont(col_m))
     sigma_comms = [srs.commit_lagrange(c) for c in sig_cols]
+    log("sigma committed")
     vk = VerifyingKey(k, cs, fixed_comms, sigma_comms)
     pk = ProvingKey(vk, fixed_plain, sig_cols, None)
     return vk, pk

@@ -139,6 +139,7 @@ def create_proof_device(
     one_hot([0], ("l0", 0))
     one_hot([usable], ("llast", 0))
     one_hot(range(usable + 1, n), ("lblind", 0))
+    log("fixed columns fed")
 
     # --- 0. vk hash + instance commitments (verifier.rs:339-363) -----------
     t.common_scalar(pk.vk.hash_scalar())
@@ -300,6 +301,7 @@ def create_proof_device(
     r_plain = ints_to_u64([_rand_fr(rng) for _ in range(n)])
     t.write_point(commit(r_plain))
     register(("vanishing_r", 0), r_plain)
+    log("vanishing random committed")
 
     y = t.squeeze_challenge()
 

@@ -71,6 +71,7 @@ COPIES = [
     "aggregation/gadgets/__init__.py", "aggregation/gadgets/main_gate.py", "aggregation/gadgets/range_chip.py",
     "aggregation/gadgets/integer.py", "aggregation/gadgets/ecc.py", "aggregation/gadgets/poseidon.py",
     "models/__init__.py", "models/simple_example.py", "models/aggregation_circuit.py",
+    "config.py", "api.py", "utils/artifacts.py", "utils/jobs.py", "aggregation/tree.py",
 ]
 
 # Where a copy may differ: (first, last) lines of the ORIGINAL, 1-based and
@@ -116,6 +117,38 @@ REMOVED = {
     ],
     "models/aggregation_circuit.py": [
         (3, 3, "docstring wording: the reference's top-level circuit"),
+    ],
+    "config.py": [
+        (36, 36, "mul_nbits: nothing passes it on to the outer circuit"),
+        (38, 63, "the knobs nothing in the port reads: limb_bits, num_limbs, range_table_bits (the gadgets' "
+                 "own constants); device_limb_bits, device_nlimbs (the TPU kernels' 32 x 8-bit limbs); batch, "
+                 "mesh_dp, mesh_mp (the JAX bench's batch and mesh); device_msm (the port's commitments take "
+                 "an explicit `device`); pallas_ec (the TPU verifier's ladder); full_mock (the JAX slow tests')"),
+        (69, 71, "phase_d: the example's switch; the port's outer prover always runs phase D"),
+        (90, 90, "from_env's H2A_MUL_NBITS, with mul_nbits"),
+        (97, 102, "mesh_shape: the JAX mesh's (dp, mp)"),
+    ],
+    "api.py": [
+        (19, 19, "module docstring: the entry points' `device`"),
+        (22, 24, "imports: resolve_device and keygen_device"),
+        (26, 26, "create_proof_device beside the host create_proof"),
+        (28, 28, "verify_batch from the port's plonk/verifier_device, not plonk/verifier_tpu"),
+        (38, 39, "Setup.new's `device`: the SRS's fixed-base products on the card (None: the host)"),
+        (47, 55, "keygen_vk/keygen_pk's `device` (keygen_device; None: the host keygen), and create_proof "
+                 "with its `device` (create_proof_device; None: the host create_proof)"),
+    ],
+    "utils/jobs.py": [
+        (69, 81, "aggregate_checkpointed's `device`, its docstring, the port's verifier_device imports"),
+        (112, 117, "the batch step: batch_proofs on `device`, quads_to_ints in place of jac_to_ints"),
+    ],
+    "aggregation/tree.py": [
+        (9, 11, "module docstring: phase D through the outer prover's prove_and_save on the card"),
+        (52, 65, "prove_node's `device`, its docstring, the prove_and_save import in place of the native "
+                 "keygen and prover, and the node's stem settled first: under build/artifacts by default, "
+                 "never in the checked-in docs/artifacts"),
+        (71, 71, "the children's SRS: kzg.setup with `device`"),
+        (102, 146, "the node's SRS, keygen, prove, verify and artifacts: prove_and_save on `device` through one "
+                   "DeviceSRS, keygen on the witness-bearing assignment in place of a second, blank synthesis"),
     ],
 }
 

@@ -95,9 +95,10 @@ def test_slice_runs_with_jax_unimportable():
 
 def test_every_module_imports_without_jax():
     """Each module of the package (the host copies, the MSM's `ops/msm`,
-    `ops/msm_kernels`, `plonk/kzg` and `plonk/keygen_device` among them) and
-    `chip_smoke.py` import with `jax` and the JAX package made
-    unimportable."""
+    `ops/msm_kernels`, `plonk/kzg` and `plonk/keygen_device`, the outer
+    prover `tools/outer_prove`, `api`, `utils/jobs` and `aggregation/tree`
+    among them) and `chip_smoke.py` import with `jax` and the JAX package
+    made unimportable."""
     script = POISON + textwrap.dedent(
         """
         import importlib, pkgutil
@@ -117,7 +118,8 @@ def test_every_module_imports_without_jax():
     imported = res.stdout.split()
     for name in ("ops.msm", "ops.msm_kernels", "plonk.kzg", "plonk.keygen_device", "ops.ec_kernels",
                  "fields", "utils.native", "oracle.pairing", "plonk.prover_native", "aggregation.chips",
-                 "models.aggregation_circuit", "convert"):
+                 "models.aggregation_circuit", "convert", "tools.outer_prove", "api", "config",
+                 "utils.jobs", "utils.artifacts", "aggregation.tree"):
         assert "halo2_aggregation_tpu_torch." + name in imported
 
 
@@ -132,6 +134,26 @@ def test_cuda_request_raises_without_a_card():
         verify_batch(None, None, [], [], device="cuda")
     with pytest.raises(RuntimeError, match="cuda"):
         verify_batch(None, None, [], [])  # the default device is the card
+    from halo2_aggregation_tpu_torch.aggregation.tree import prove_node
+    from halo2_aggregation_tpu_torch.tools.outer_prove import run_outer
+    from halo2_aggregation_tpu_torch.utils.jobs import aggregate_checkpointed
+
+    with pytest.raises(RuntimeError, match="cuda"):
+        aggregate_checkpointed(None, None, [], [], "unused.jsonl")
+    with pytest.raises(RuntimeError, match="cuda"):
+        prove_node("a", "b")
+    with pytest.raises(RuntimeError, match="cuda"):
+        run_outer()
+    from halo2_aggregation_tpu_torch import api
+
+    with pytest.raises(RuntimeError, match="cuda"):
+        api.Setup.new(4)
+    with pytest.raises(RuntimeError, match="cuda"):
+        api.keygen_vk(None, None, None)
+    with pytest.raises(RuntimeError, match="cuda"):
+        api.keygen_pk(None, None, None)
+    with pytest.raises(RuntimeError, match="cuda"):
+        api.create_proof(None, None, None, [])
 
 
 @pytest.mark.parametrize(
@@ -142,6 +164,14 @@ def test_cuda_request_raises_without_a_card():
         ("plonk.keygen_device", "keygen_device"),
         ("plonk.kzg", "DeviceSRS"),
         ("plonk.quotient_device", "DeviceQuotient"),
+        ("api", "verify_batch"),
+        ("api", "create_proof"),
+        ("api", "keygen_vk"),
+        ("api", "keygen_pk"),
+        ("api", "Setup.new"),
+        ("utils.jobs", "aggregate_checkpointed"),
+        ("aggregation.tree", "prove_node"),
+        ("tools.outer_prove", "run_outer"),
     ],
 )
 def test_entry_points_default_to_the_card(module, name):
@@ -150,7 +180,9 @@ def test_entry_points_default_to_the_card(module, name):
     import importlib
     import inspect
 
-    fn = getattr(importlib.import_module("halo2_aggregation_tpu_torch." + module), name)
+    fn = importlib.import_module("halo2_aggregation_tpu_torch." + module)
+    for part in name.split("."):
+        fn = getattr(fn, part)
     assert inspect.signature(fn).parameters["device"].default == "cuda"
 
 
