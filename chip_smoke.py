@@ -42,6 +42,19 @@ nonzero before the last line):
      same quads; then one run under torch.profiler for the device's busy
      share, its events and its kernels by name, and the events of each
      piece of the device step;
+  4b. parallel: on the main phase's B = 128 proofs, `verify_algebra` (the
+     sequential folds, one K1 call a fold step) with the main phase's quads
+     and `verify_batch(..., fast=False)` accepting; one padded K1 launch
+     (`fast_prep(lane_pad=3)`'s lanes) with the unpadded lanes' sums; then
+     `tools/dryrun_multichip.py`'s rank step on world 1 over NCCL (mesh 1 x
+     1) and world 2 over gloo, two ranks on the one card (meshes 2 x 1 and
+     1 x 2): both mesh formulations' quads equal the main phase's on every
+     rank, `check_aggregate` accepts them, `sharded_field_algebra`'s h_eval
+     equals `field_algebra`'s, `sharded_msm` of a random column at 2^16
+     equals one `msm`; per rank the device stage, the collectives' time and
+     the launches (K2 and K1 once a formulation, the segmented sum twice:
+     the lanes, then the gathered mp partials; K7 and the segmented sum once
+     a sharded MSM);
   5. ntt: the device's Montgomery product alone on 2^20 random pairs and
      the edge values, for Fq and Fr, against the plain PyTorch product; K3
      and K4 at k = 1, 5, 9, 13 and 16 on 2 random columns, K5's power series
@@ -785,7 +798,64 @@ def phase_main(params, vk, protos, device):
         "peak_device_mib": torch.cuda.max_memory_allocated(device) / 2**20,
     })
     phase_profile(params, vk, insts, proofs, device)
-    return launches
+    return launches, efws
+
+
+def phase_parallel(params, vk, protos, efws, device) -> None:
+    """The verifier's scale-out and its reference formulation, on the main
+    phase's proofs (B = 128, the four cycled) against the main phase's
+    quads `efws` (held to the host verifier there).  Each path's launches
+    are read with the counts set to 0 just before it."""
+    import torch
+
+    from halo2_aggregation_tpu_torch.ops import curve_ops as co
+    from halo2_aggregation_tpu_torch.ops.ec_kernels import jac_segment_sum, scalar_mul_win
+    from halo2_aggregation_tpu_torch.plonk import verifier_device as vd
+    from halo2_aggregation_tpu_torch.tools import dryrun_multichip as dm
+
+    insts = [protos[i % 4][0] for i in range(B)]
+    proofs = [protos[i % 4][1] for i in range(B)]
+    parsed = dm.parse_all(params, vk, protos, B)
+    seconds = {}
+
+    # the sequential formulation: every fold step one K1 call
+    batch = vd.batch_proofs(vk, parsed, device)
+    scalar_mul_win.launches = 0
+    t0 = time.perf_counter()
+    out = vd.verify_algebra(vk, batch, B)
+    torch.cuda.synchronize()
+    seconds["verify_algebra"] = time.perf_counter() - t0
+    va_launches = scalar_mul_win.launches
+    if va_launches < 1 or vd.quads_to_ints(out) != efws:
+        raise AssertionError(f"verify_algebra ({va_launches} K1 launches): quads != the fast path's")
+    scalar_mul_win.launches = 0
+    t0 = time.perf_counter()
+    ok, got = vd.verify_batch(params, vk, insts, proofs, device=device, fast=False)
+    torch.cuda.synchronize()
+    seconds["verify_batch_sequential"] = time.perf_counter() - t0
+    if ok is not True or got != efws or scalar_mul_win.launches != va_launches:
+        raise AssertionError(f"verify_batch(fast=False) returned {ok!r}, {scalar_mul_win.launches} K1 launches")
+
+    # one padded K1 launch: fast_prep(lane_pad=3)'s lanes, padding lanes
+    # (identity points, zero scalars) in each component, give the sums of
+    # the unpadded lanes (comparison launches, on no path)
+    sums = {}
+    for pad in (1, 3):
+        pts, ss, ms, _, _ = vd.fast_prep(vk, parsed, device, lane_pad=pad)
+        sums[pad] = (sum(ms), co.jac_to_ints(jac_segment_sum(scalar_mul_win(pts, ss), vd.segment_offsets(ms), 1)))
+    if sums[3][0] <= sums[1][0] or sums[3][1] != sums[1][1]:
+        raise AssertionError(f"padded K1 launch ({sums[3][0]} lanes) != unpadded ({sums[1][0]} lanes)")
+
+    # the mesh formulations and the sharded MSM: the dry-run tool's card run
+    groups = dm.run_card(params, vk, protos, efws, device)
+    emit({
+        "phase": "parallel", "batch": B, "tolerance": "exact: equal affine points and equal bits",
+        "quads_equal_main": True, "check_aggregate": True, "sharded_msm_equal_msm": True,
+        "h_eval_equal_field_algebra": True, "verify_algebra_equal_fast": True, "verify_batch_sequential_accepts": True,
+        "verify_algebra_k1_launches": va_launches, "padded_lanes": [sums[1][0], sums[3][0]],
+        "padded_k1_equal_unpadded": True, "seconds": seconds, "groups": groups,
+        "note": "two ranks share one card: no speed-up is possible or claimed",
+    })
 
 
 def device_events(prof) -> dict:
@@ -1628,8 +1698,10 @@ def main() -> int:
     params, vk, protos = make_proofs()
     k2 = phase_k2(params, vk, protos, device)
     done("k2")
-    launches = phase_main(params, vk, protos, device)
+    launches, efws = phase_main(params, vk, protos, device)
     done("main+profile")
+    phase_parallel(params, vk, protos, efws, device)
+    done("parallel")
     k1["launches"] = launches["ec_win"]
     k2["launches"] = launches["fa_tape"]
     k8["launches"] = launches["ec_ladder"]

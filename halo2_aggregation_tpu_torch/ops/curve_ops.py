@@ -159,6 +159,21 @@ def jac_add_mixed(p: JacPoint, x2: torch.Tensor, y2: torch.Tensor) -> JacPoint:
     return _narrow(_wadd_mixed(_widen(p), widen(x2), widen(y2)))
 
 
+def jac_neg(p: JacPoint) -> JacPoint:
+    return JacPoint(p.x, fo.neg(p.y, FQ), p.z)
+
+
+def jac_to_affine(p: JacPoint) -> AffinePoint:
+    """Batch conversion on the device (one Fermat inversion a point); the
+    identity comes out as (0, 0) with its `inf` flag set."""
+    w = _widen(p)
+    zinv = fo.winv(w.z, FQ)  # 0 -> 0
+    zinv2 = wmul(zinv, zinv, FQ)
+    x = wmul(w.x, zinv2, FQ)
+    y = wmul(w.y, wmul(zinv2, zinv, FQ), FQ)
+    return AffinePoint(narrow(x), narrow(y), is_zero(p.z))
+
+
 def jac_eq(p: JacPoint, q: JacPoint) -> torch.Tensor:
     """Whether p and q are the same group element, lane by lane (a bool
     tensor of the batch shape), whatever their Jacobian representatives:
@@ -268,6 +283,14 @@ def scalar_mul_ladder(points: JacPoint, scalars: torch.Tensor, nbits: int = 254)
     ident = _wide_identity((n,), P.x.device)
     acc = JacPoint(*(select(is_zero(acc.z), i, a) for i, a in zip(ident, acc)))
     return JacPoint(*(narrow(c).reshape(*shape, 8) for c in acc))
+
+
+def affine_to_ints(p: AffinePoint) -> list:
+    """Affine batch -> host int pairs (None where `inf`), flattened."""
+    xs = FQ.from_mont_tensor(p.x)
+    ys = FQ.from_mont_tensor(p.y)
+    infs = p.inf.reshape(-1).tolist()
+    return [None if i else (x, y) for x, y, i in zip(xs, ys, infs)]
 
 
 def jac_to_ints(p: JacPoint) -> list:

@@ -222,6 +222,38 @@ def inv(a, spec: FieldSpec):
     return narrow(winv(widen(a), spec))
 
 
+def mont_pow_static(a, e: int, spec: FieldSpec):
+    """a^e (Montgomery in and out) for a fixed Python-int exponent e >= 0:
+    square and multiply over the bits of e, high first."""
+    if e < 0:
+        raise ValueError(f"exponent {e}: expected >= 0")
+    w = widen(a)
+    acc = spec.wide(a.device).one.expand_as(w)
+    for bit in bin(e)[2:] if e else "":
+        acc = wmul(acc, acc, spec)
+        if bit == "1":
+            acc = wmul(acc, w, spec)
+    return narrow(acc)
+
+
+def batch_inv(a, spec: FieldSpec):
+    """The inverse of every element (Montgomery domain), each by its own
+    Fermat chain vectorised over the batch: a zero maps to zero and leaves
+    the others as they are."""
+    return inv(a, spec)
+
+
+def horner_fold(values, x, spec: FieldSpec):
+    """acc = v_0, then acc = acc * x + v_i: the fold of the verifier's y, theta
+    and v challenges.  `values` is `(n, ..., 8)` stacked along axis 0; returns
+    `(..., 8)`."""
+    w, xw = widen(values), widen(x)
+    acc = w[0]
+    for v in w[1:]:
+        acc = wadd(wmul(acc, xw, spec), v, spec)
+    return narrow(acc)
+
+
 def to_mont(a, spec: FieldSpec):
     return narrow(wmul(widen(a), spec.wide(a.device).r2, spec))
 
@@ -235,6 +267,10 @@ def from_mont(a, spec: FieldSpec):
 
 def is_zero(a):
     return (a == 0).all(-1)
+
+
+def eq(a, b):
+    return (a == b).all(-1)
 
 
 def select(mask, a, b):

@@ -216,3 +216,10 @@ def msm(points: AffinePoint, scalars: torch.Tensor, *, signed: bool = True) -> J
         raise ValueError(f"msm: unsupported device {device}")
     launch = msm_kernels.msm_bucket_s5 if signed else msm_kernels.msm_bucket_u4
     return launch(points.x, points.y, digits, choose_chunks(n, signed, *msm_kernels.occupancy(signed)))
+
+
+def msm_host(points_int, scalars_int):
+    """The oracle's MSM on host ints, for tiny inputs and tests."""
+    from ..oracle import curve as oc
+
+    return oc.g1_msm(points_int, scalars_int)

@@ -201,6 +201,12 @@ def pow_series_plain(start: torch.Tensor, base: torch.Tensor, k: int, bitrev: bo
     return acc
 
 
+def poly_eval(coeffs: torch.Tensor, x: torch.Tensor, spec=fo.FR) -> torch.Tensor:
+    """Horner evaluation of `(n, 8)` coefficients (low first) at the point
+    `x` `(8,)`, all Montgomery form, from the top coefficient down."""
+    return fo.horner_fold(coeffs.flip(0), x, spec)
+
+
 # ---------------------------------------------------------------------------
 # wrappers
 # ---------------------------------------------------------------------------

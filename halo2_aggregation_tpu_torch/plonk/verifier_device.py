@@ -13,11 +13,18 @@ path (`verify_batch(aggregate=True)` -> `verify_algebra_fast`):
    proof's quad (e, f, w, zw);
 3. host: `check_aggregate` folds all quads into one pairing.
 
-`_multiopen_coefficients`, `synthetic_batch` and `aggregate_quads` /
-`check_aggregate` are copies of the JAX module's host code: that module
-imports jax, so the port cannot import them.  The sequential
-`verify_algebra` cross-check is not ported; the host `verify_proof` is the
-reference for quads.
+The other formulations of the JAX module: `field_algebra`, the unfused
+field algebra (`plonk/protocol.py`'s formulas over `TorchLimbOps`, not
+through the tape), which K2's tape is held to and `parallel/` shards;
+`verify_algebra`, the sequential H fold and GWC fold in the reference's
+order, every scalar-mul through `ops/ec_kernels.py::scalar_mul` (K1 on the
+card), which `verify_batch(..., fast=False)` runs; and `fast_prep`, the lane
+points as coordinates with each component padded to a multiple of
+`lane_pad`, which both mesh formulations of `parallel/batch_verify.py` take.
+
+`_multiopen_coefficients`, `synthetic_batch` and
+`aggregate_quads` / `check_aggregate` are copies of the JAX module's host
+code: that module imports jax, so the port cannot import them.
 """
 
 from __future__ import annotations
@@ -39,9 +46,10 @@ from ..oracle import curve as oc
 from ..oracle.pairing import multi_pairing_check_fast
 from ..utils import native
 from ..utils.serialization import g1_compress
-from .fa_fused import field_algebra_fused
+from .fa_fused import fa_gather, fa_program, fa_schedule, field_algebra_fused
 from .keygen import VerifyingKey
 from .protocol import LookupEvals, PermutationSetEvals, query_schedule, rotation_sets
+from .protocol_ops import TorchLimbOps
 from .verifier import ParsedProof, num_perm_chunks, parse_proof
 
 FR = fo.FR
@@ -244,6 +252,158 @@ def _multiopen_coefficients(vk: VerifyingKey, p: ParsedProof):
     }
 
 
+def fast_prep(vk: VerifyingKey, parsed: List[ParsedProof], device, lane_pad: int = 1,
+              batch: VerifierBatch | None = None):
+    """Host half of the mesh paths: the GWC folds expanded into one (B, M)
+    lane array of (point, scalar) pairs, the lane points as coordinates on
+    `device`, gathered out of `batch` (the `VerifierBatch` of `parsed`, built
+    here if not given) by `fast_prep_gathered`'s descriptors.  Each component
+    (w, zw, f) is padded on the device up to a multiple of `lane_pad` with
+    identity points (Z = 0, as the JAX package pads) and zero scalars, so
+    that it splits evenly over an `mp` mesh axis: a zero scalar gives the
+    identity whatever the point, so a padding lane adds nothing to its
+    component's sum.
+
+    Returns (lane_pts, lane_scalars, ms, h_coeff_mont, known_mont):
+    `lane_pts` a JacPoint of (B, M, 8) Montgomery Fq, `lane_scalars` (B, M, 8)
+    plain limbs, `ms` the padded component sizes (M = sum(ms)), and the two
+    (B, 8) Montgomery vectors of the h_eval linearization."""
+    if lane_pad < 1:
+        raise ValueError(f"lane_pad = {lane_pad}: expected >= 1")
+    device = resolve_device(device)
+    B = len(parsed)
+    b = batch_proofs(vk, parsed, device) if batch is None else batch
+    if b.x.shape[0] != B:
+        raise ValueError(f"batch holds {b.x.shape[0]} proofs, expected {B}")
+    descs, lane_ss, h_coeff_mont, known_mont = fast_prep_gathered(vk, parsed, device)
+    identity = JacPoint(*(c.expand(B, 8) for c in _points([None], device)))
+    pts, ss, ms = [], [], []
+    lo = 0
+    for comp in descs:
+        pad = (-len(comp)) % lane_pad
+        pts += [_desc_point_batch(vk, b, d, B) for d in comp] + [identity] * pad
+        ss += [lane_ss[:, lo : lo + len(comp)], lane_ss.new_zeros(B, pad, 8)]
+        lo += len(comp)
+        ms.append(len(comp) + pad)
+    lane_pts = JacPoint(*(torch.stack([p[c] for p in pts], 1) for c in range(3)))
+    return lane_pts, torch.cat(ss, 1), tuple(ms), h_coeff_mont, known_mont
+
+
+def field_algebra(vk: VerifyingKey, b: VerifierBatch, B: int):
+    """Steps 20-24 of the verifier (the pure Fr work) in plain torch on the
+    batch's device: `plonk/protocol.py`'s formulas evaluated directly over
+    `TorchLimbOps` by `fa_program`, not through K2's tape.  Returns
+    (h_eval, x^n, x^n - 1) as (B, 8) canonical Montgomery Fr, bit for bit
+    the JAX `field_algebra`'s (see `fa_program` on its one inversion)."""
+    cols = fa_gather(vk, b)
+    if cols[0].shape[0] != B:
+        raise ValueError(f"batch holds {cols[0].shape[0]} proofs, expected {B}")
+    return fa_program(TorchLimbOps(b.x.device), vk, dict(zip(fa_schedule(vk), cols)))
+
+
+def _ec_mul_mont(point: JacPoint, scalar_mont) -> JacPoint:
+    """Scalar-mul where the scalar arrives in Montgomery form: decode to
+    plain limbs, then `ec_kernels.scalar_mul` (K1 on a CUDA tensor, its
+    plain version on a CPU one)."""
+    return scalar_mul(point, fo.from_mont(scalar_mont, FR))
+
+
+def verify_algebra(vk: VerifyingKey, b: VerifierBatch, B: int):
+    """Steps 20-27 of the verifier for B proofs at once, with the EC folds
+    done sequentially in the reference's order: the parity reference of
+    `verify_algebra_fast`.  Returns {e, f, w, zw: JacPoint of (B, 8),
+    h_eval: (B, 8)} on the batch's device."""
+    cs = vk.cs
+    omega = vk.omega
+    omega_inv = pow(omega, -1, R)
+    num_chunks = num_perm_chunks(cs)
+    device = b.x.device
+
+    def const(v: int):
+        return FR.to_mont_tensor([v] * B, device)
+
+    h_eval, xn, _ = field_algebra(vk, b, B)
+
+    # step 24 (second half): the H fold (vanishing.rs:177-188)
+    H = b.h_comms[0]
+    xn_power = xn
+    for hc in b.h_comms[1:]:
+        term = _ec_mul_mont(hc, xn_power)
+        xn_power = fo.mont_mul(xn_power, xn, FR)
+        H = co.jac_add(H, term)
+
+    # step 25: resolve queries (constant commitments from the vk)
+    fixed_comms = [_points([c] * B, device) for c in vk.fixed_commitments]
+    sigma_comms = [_points([c] * B, device) for c in vk.sigma_commitments]
+
+    def resolve(q):
+        if q.kind == "instance":
+            col, _ = cs.instance_queries[q.index]
+            return b.inst_comms[col.index], b.inst_evals[q.index]
+        if q.kind == "advice":
+            col, _ = cs.advice_queries[q.index]
+            return b.adv_comms[col.index], b.adv_evals[q.index]
+        if q.kind == "fixed":
+            col, _ = cs.fixed_queries[q.index]
+            return fixed_comms[col.index], b.fix_evals[q.index]
+        if q.kind == "perm_z":
+            ev = b.perm_sets[q.index]
+            return b.perm_z_comms[q.index], (ev.z if q.rotation == 0 else ev.z_next)
+        if q.kind == "perm_z_last":
+            return b.perm_z_comms[q.index], b.perm_sets[q.index].z_last
+        if q.kind == "lookup_z":
+            ev = b.lookup_evs[q.index]
+            return b.lookup_z_comms[q.index], (ev.z if q.rotation == 0 else ev.z_next)
+        if q.kind == "lookup_a":
+            ev = b.lookup_evs[q.index]
+            return b.lookups_permuted[q.index][0], (ev.a_prime if q.rotation == 0 else ev.a_prime_prev)
+        if q.kind == "lookup_s":
+            return b.lookups_permuted[q.index][1], b.lookup_evs[q.index].s_prime
+        if q.kind == "sigma":
+            return sigma_comms[q.index], b.sigma_evals[q.index]
+        if q.kind == "vanishing_h":
+            return H, h_eval
+        if q.kind == "vanishing_r":
+            return b.r_comm, b.r_eval
+        raise KeyError(q.kind)
+
+    # step 27: GWC multiopen fold (multiopen.rs:271-509)
+    by_rot = {}
+    for q in query_schedule(cs, num_chunks, len(cs.lookups)):
+        by_rot.setdefault(q.rotation, []).append(resolve(q))
+
+    eval_multi = const(0)
+    Ws, ZWs, Fs = [], [], []
+    for set_i, rot in enumerate(sorted(by_rot)):
+        w_exp = pow(omega, rot, R) if rot >= 0 else pow(omega_inv, -rot, R)
+        z_pt = fo.mont_mul(b.x, const(w_exp), FR)
+        wi = b.w_comms[set_i]
+        Ws.append(wi)
+        ZWs.append(_ec_mul_mont(wi, z_pt))
+        eval_multi = fo.mont_mul(eval_multi, b.u, FR)
+        batch_c, batch_e = by_rot[rot][0]
+        for comm, ev in by_rot[rot][1:]:
+            batch_c = co.jac_add(_ec_mul_mont(batch_c, b.v), comm)
+            batch_e = fo.add(fo.mont_mul(batch_e, b.v, FR), ev, FR)
+        Fs.append(batch_c)
+        eval_multi = fo.add(eval_multi, batch_e, FR)
+
+    def fold_pts(pts):
+        acc = pts[0]
+        for pt in pts[1:]:
+            acc = co.jac_add(_ec_mul_mont(acc, b.u), pt)
+        return acc
+
+    g1 = _points([G1_GEN] * B, device)
+    return {
+        "e": _ec_mul_mont(g1, fo.neg(eval_multi, FR)),
+        "f": fold_pts(Fs),
+        "w": fold_pts(Ws),
+        "zw": fold_pts(ZWs),
+        "h_eval": h_eval,
+    }
+
+
 def _desc_point_batch(vk: VerifyingKey, b: VerifierBatch, desc, B: int) -> JacPoint:
     """A lane descriptor -> (B, 8) JacPoint: transcript points come from the
     VerifierBatch; vk constants are converted and broadcast."""
@@ -299,6 +459,24 @@ def fast_device_gathered(
     return fast_device(vk, b, B, ms, lane_pts, lane_scalars, h_coeff_mont, known_mont, method)
 
 
+def with_e_lane(lane_pts: JacPoint, lane_scalars, e_scalar):
+    """The (B, M) lanes with the e-lane appended as lane M: G1 with the
+    (B, 8) plain scalar `e_scalar`.  Returns (points, scalars) of M + 1
+    lanes, contiguous."""
+    B = lane_scalars.shape[0]
+    g1 = _points([G1_GEN], lane_scalars.device)
+    pts = JacPoint(*(torch.cat((lp, g.expand(B, 1, 8)), 1) for lp, g in zip(lane_pts, g1)))
+    return pts, torch.cat((lane_scalars, e_scalar[:, None, :]), 1)
+
+
+def segment_offsets(sizes) -> list:
+    """Segment sizes -> the offsets `jac_segment_sum` takes."""
+    offsets = [0]
+    for m in sizes:
+        offsets.append(offsets[-1] + m)
+    return offsets
+
+
 def fast_device(
     vk: VerifyingKey, b: VerifierBatch, B: int, ms: tuple,
     lane_pts: JacPoint, lane_scalars, h_coeff_mont, known_mont, method: str = "win",
@@ -308,19 +486,10 @@ def fast_device(
     plus the e-lane (e = -(eval_known + h_coeff*h_eval)*G1), then ONE
     segmented sum over each proof's lanes: the components w, zw, f and the
     e-lane alone.  Returns {e, f, w, zw: JacPoint of (B, 8), h_eval: (B, 8)}."""
-    device = b.x.device
     h_eval, _, _, e_scalar = field_algebra_fused(vk, b, B, h_coeff_mont, known_mont)
-    g1 = _points([G1_GEN], device)
-    all_pts = JacPoint(
-        *(torch.cat((lp, g.expand(B, 1, 8)), 1) for lp, g in zip(lane_pts, g1))
-    )
-    all_scalars = torch.cat((lane_scalars, e_scalar[:, None, :]), 1)
+    all_pts, all_scalars = with_e_lane(lane_pts, lane_scalars, e_scalar)
     per_all = scalar_mul(all_pts, all_scalars, method)  # (B, M + 1, 8)
-
-    offsets = [0]
-    for m in (*ms, 1):
-        offsets.append(offsets[-1] + m)
-    sums = jac_segment_sum(per_all, offsets, lane_axis=1)  # (4, B, 8)
+    sums = jac_segment_sum(per_all, segment_offsets((*ms, 1)), lane_axis=1)  # (4, B, 8)
     quads = {name: JacPoint(*(c[j] for c in sums)) for j, name in enumerate(("w", "zw", "f", "e"))}
     quads["h_eval"] = h_eval
     return quads
@@ -456,10 +625,13 @@ def verify_batch(
     aggregate: bool = True,
     timings: dict | None = None,
     method: str = "win",
+    fast: bool = True,
 ):
     """Full batched verification: host transcript replay, device algebra
     (K2, the scalar-mul by `method`, "win" for K1 or "ladder" for K8, and
-    the lane sums on `device`), host pairing.  With
+    the lane sums on `device`), host pairing.  With `fast=False` the
+    device algebra is the sequential `verify_algebra` (plain field algebra,
+    one K1 call a fold step) in place of `verify_algebra_fast`.  With
     aggregate=True, folds all quads into ONE pairing check and returns
     (ok: bool, quads); otherwise ([ok per proof], quads).  `timings`, if
     given, receives the stage split in seconds: parse, prep, device (up to
@@ -472,9 +644,14 @@ def verify_batch(
         parsed.append(parse_proof(vk, inst_comms, proof))
     t1 = time.perf_counter()
     batch = batch_proofs(vk, parsed, device)
-    prep = fast_prep_gathered(vk, parsed, device)
+    if fast:
+        prep = fast_prep_gathered(vk, parsed, device)
     t2 = time.perf_counter()
-    efws = quads_to_ints(fast_device_gathered(vk, batch, len(parsed), *prep, method))
+    if fast:
+        out = fast_device_gathered(vk, batch, len(parsed), *prep, method)
+    else:
+        out = verify_algebra(vk, batch, len(parsed))
+    efws = quads_to_ints(out)
     t3 = time.perf_counter()
     if aggregate:
         result = check_aggregate(efws, params)

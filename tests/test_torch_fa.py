@@ -32,7 +32,6 @@ from halo2_aggregation_tpu_torch.plonk.protocol_ops import (
     OP_INV,
     IntInvOps,
     TapeOps,
-    TorchLimbOps,
     run_tape,
 )
 
@@ -93,10 +92,10 @@ def test_tape_matches_jax_fused_body_emulation(setup, jax_outputs, pvk):
 
 
 def test_torch_limb_ops_direct_matches_tape(setup, jax_outputs, pvk):
-    """fa_program over TorchLimbOps without the tape: same outputs."""
+    """fa_program over TorchLimbOps without the tape
+    (`verifier_device.field_algebra`): same outputs."""
     vk, _, _, pb = setup
-    vals = dict(zip(ff.fa_schedule(pvk), ff.fa_gather(pvk, pb)))
-    got = ff.fa_program(TorchLimbOps("cpu"), pvk, vals)
+    got = vd.field_algebra(pvk, pb, B)
     for g, w in zip(got, jax_outputs):
         assert np.array_equal(g.numpy(), w)
 

@@ -181,7 +181,8 @@ def test_every_host_module_of_the_port_is_a_listed_copy_or_a_port():
     device modules (which tests/test_torch_*.py hold to their originals by
     value)."""
     ported = {"__init__.py", "ops/__init__.py", "plonk/__init__.py", "ops/field_ops.py", "ops/curve_ops.py",
-              "ops/ntt.py", "ops/msm.py", "ops/limbs.py", "plonk/fa_fused.py", "plonk/quotient_device.py"}
+              "ops/ntt.py", "ops/msm.py", "ops/limbs.py", "plonk/fa_fused.py", "plonk/quotient_device.py",
+              "parallel/__init__.py", "parallel/mesh.py", "parallel/sharded_msm.py", "parallel/batch_verify.py"}
     namesakes = {str(f.relative_to(PORT)) for f in PORT.rglob("*.py") if (REF / f.relative_to(PORT)).exists()}
     assert namesakes - ported == set(COPIES)
 

@@ -96,9 +96,9 @@ def test_slice_runs_with_jax_unimportable():
 def test_every_module_imports_without_jax():
     """Each module of the package (the host copies, the MSM's `ops/msm`,
     `ops/msm_kernels`, `plonk/kzg` and `plonk/keygen_device`, the outer
-    prover `tools/outer_prove`, `api`, `utils/jobs` and `aggregation/tree`
-    among them) and `chip_smoke.py` import with `jax` and the JAX package
-    made unimportable."""
+    prover `tools/outer_prove`, `api`, `utils/jobs`, `aggregation/tree`,
+    `parallel/` and `tools/dryrun_multichip` among them) and `chip_smoke.py`
+    import with `jax` and the JAX package made unimportable."""
     script = POISON + textwrap.dedent(
         """
         import importlib, pkgutil
@@ -119,8 +119,29 @@ def test_every_module_imports_without_jax():
     for name in ("ops.msm", "ops.msm_kernels", "plonk.kzg", "plonk.keygen_device", "ops.ec_kernels",
                  "fields", "utils.native", "oracle.pairing", "plonk.prover_native", "aggregation.chips",
                  "models.aggregation_circuit", "convert", "tools.outer_prove", "api", "config",
-                 "utils.jobs", "utils.artifacts", "aggregation.tree"):
+                 "utils.jobs", "utils.artifacts", "aggregation.tree", "parallel", "parallel.mesh",
+                 "parallel.sharded_msm", "parallel.batch_verify", "tools.dryrun_multichip"):
         assert "halo2_aggregation_tpu_torch." + name in imported
+
+
+def test_dryrun_runs_with_jax_unimportable(tmp_path):
+    """`tools/dryrun_multichip.py --device cpu --world 2` (two gloo ranks)
+    with `jax` and the JAX package unimportable in the caller and in the
+    spawned ranks: packages of those names that raise on import come first
+    on the path every process starts from."""
+    poison = tmp_path / "poison"
+    for name in ("jax", "halo2_aggregation_tpu"):
+        (poison / name).mkdir(parents=True)
+        (poison / name / "__init__.py").write_text(f"raise ImportError('{name} is unimportable here')\n")
+    env = dict(os.environ, PYTHONPATH=f"{poison}{os.pathsep}{ROOT}", OMP_NUM_THREADS="1")
+    res = subprocess.run(
+        [sys.executable, "-m", "halo2_aggregation_tpu_torch.tools.dryrun_multichip", "--device", "cpu",
+         "--world", "2"],
+        cwd=tmp_path, env=env, capture_output=True, text=True, timeout=600,
+    )
+    assert res.returncode == 0, res.stderr[-3000:]
+    assert "dryrun_multichip ok" in res.stdout
+    assert '"quads_equal_host": true' in res.stdout
 
 
 def test_cuda_request_raises_without_a_card():
@@ -144,6 +165,14 @@ def test_cuda_request_raises_without_a_card():
         prove_node("a", "b")
     with pytest.raises(RuntimeError, match="cuda"):
         run_outer()
+    with pytest.raises(RuntimeError, match="cuda"):
+        verify_batch(None, None, [], [], fast=False)
+    from halo2_aggregation_tpu_torch.parallel.mesh import make_mesh, run_ranks
+
+    with pytest.raises(RuntimeError, match="cuda"):
+        make_mesh()
+    with pytest.raises(RuntimeError, match="cuda"):
+        run_ranks(print, 1)
     from halo2_aggregation_tpu_torch import api
 
     with pytest.raises(RuntimeError, match="cuda"):
@@ -172,6 +201,8 @@ def test_cuda_request_raises_without_a_card():
         ("utils.jobs", "aggregate_checkpointed"),
         ("aggregation.tree", "prove_node"),
         ("tools.outer_prove", "run_outer"),
+        ("parallel.mesh", "make_mesh"),
+        ("parallel.mesh", "run_ranks"),
     ],
 )
 def test_entry_points_default_to_the_card(module, name):
