@@ -42,6 +42,13 @@ nonzero before the last line):
      same quads; then one run under torch.profiler for the device's busy
      share, its events and its kernels by name, and the events of each
      piece of the device step;
+  4a. bench: the port's benchmark program (`halo2_aggregation_tpu_torch/
+     bench.py::run`) at its defaults on the same four proofs: its line
+     (`proofs_aggregated_per_s` without the instance commitments, the
+     device algebra alone, K1 and K8 on the multiopen lanes, K7 at 2^17, K3
+     at 8 x 2^16, the product chain, the host baseline), every gate passed
+     (quads, K1, K8, MSM, NTT, product chain) and every roofline fraction
+     in (0, 1.05] of the bound model both share (`tools/measure.py`);
   4b. parallel: on the main phase's B = 128 proofs, `verify_algebra` (the
      sequential folds, one K1 call a fold step) with the main phase's quads
      and `verify_batch(..., fast=False)` accepting; one padded K1 launch
@@ -127,6 +134,17 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 os.environ.setdefault("H2A_PARAMS_CACHE", os.path.join(ROOT, "build", "h2a-params"))
 sys.path.insert(0, ROOT)
 
+from halo2_aggregation_tpu_torch.tools.measure import (  # noqa: E402  (the checkout is on the path from here)
+    P_ADD,
+    P_ADD_MIXED,
+    P_DOUBLE,
+    bound,
+    cuda_ms,
+    inv_products,
+    k1_products,
+    tape_products,
+)
+
 B = 128  # production batch (the JAX package's config.py:50)
 K = 9  # simple-example inner circuit (config.py:30)
 SEED = 20261016
@@ -134,81 +152,6 @@ SEED = 20261016
 
 def emit(obj) -> None:
     print(json.dumps(obj) if isinstance(obj, dict) else obj, flush=True)
-
-
-def cuda_ms(fn, reps: int) -> float:
-    """Mean milliseconds per call of `fn` on the card (CUDA events).  The
-    stream first spins for some 10 ms, so that the calls queue up behind it
-    and run back to back: a kernel of tens of microseconds is then timed by
-    the card, not by how fast this host launches."""
-    import torch
-
-    fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(20_000_000)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
-
-
-# The bound of a kernel: the least time the card could take for the same
-# work, the larger of its bytes over the memory rate and its operations
-# over their peak rate (NVIDIA's H100 SXM data sheet: 3.35 TB/s of HBM,
-# 67 TFLOP/s of float32 = 132 SMs x 128 lanes x 2 x 1.98 GHz).  The
-# operations here are Montgomery products of 8 x 32-bit limbs
-# (csrc/field.cuh::fe_mul, CIOS): 8 x (8 + 1 + 8) = 136 products of
-# 32 x 32 -> 64 bits, each at least two 32-bit integer multiply-add issue
-# slots; the INT32 lanes are half the float32 lanes, so the card issues
-# 67e12 / 4 = 16.75 T integer multiply-adds a second: 61.6 G products/s.
-HBM_BYTES_PER_S = 3.35e12
-INT32_MADS_PER_S = 67e12 / 4
-MADS_PER_PRODUCT = 272
-# products of the curve formulas (csrc/curve.cuh)
-P_DOUBLE, P_ADD, P_ADD_MIXED = 7, 16, 11
-
-
-def bound(products: int, nbytes: int) -> dict:
-    """The record fields of a kernel's bound, from the Montgomery products
-    its inputs need and the bytes it must move (each input read once, each
-    output written once).  No PyTorch call computes any of these functions
-    (256-bit modular arithmetic), so `library_ms` is null."""
-    ops_ms = products * MADS_PER_PRODUCT / INT32_MADS_PER_S * 1e3
-    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    return {
-        "bound_ms": max(ops_ms, bytes_ms), "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
-        "library_ms": None, "products": int(products), "bytes": int(nbytes),
-    }
-
-
-def inv_products(p: int) -> int:
-    """Montgomery products of one inversion (csrc/field.cuh::fe_inv): the 8
-    of the odd powers' table, a squaring a bit of p - 2 below bit 254, and
-    a product a window of the same sliding 4-bit scan."""
-    e, n, bit = p - 2, 8, 253
-    while bit >= 0:
-        if not (e >> bit) & 1:
-            n, bit = n + 1, bit - 1
-            continue
-        lo = max(bit - 3, 0)
-        while not (e >> lo) & 1:
-            lo += 1
-        n, bit = n + (bit - lo + 1) + 1, lo - 1
-    return n
-
-
-def tape_products(tape) -> int:
-    """Montgomery products one lane of a tape needs (K2, K6): one a MUL,
-    and those of an inversion an INV."""
-    from halo2_aggregation_tpu_torch.fields import R
-    from halo2_aggregation_tpu_torch.plonk.protocol_ops import OP_INV, OP_MUL
-
-    ops = tape.instrs[:, 0]
-    return int((ops == OP_MUL).sum()) + int((ops == OP_INV).sum()) * inv_products(R)
 
 
 def max_abs_err(a: list, b: list) -> int:
@@ -223,35 +166,31 @@ def max_abs_err(a: list, b: list) -> int:
 
 
 def latency_probe(device) -> dict:
-    """Nanoseconds a dependent `fe_mul` (csrc/ew.cu::mul_chain_kernel): one
-    warp on every SM runs 10,000 products in series, each waiting for the
-    one before; the result is held to a * (b / 2^256)^iters on host ints."""
+    """Nanoseconds a dependent `fe_mul` (csrc/ew.cu::mul_chain_kernel,
+    `ops/ntt.py::mul_chain`): one warp on every SM runs 10,000 products in
+    series, each waiting for the one before; the result is held to
+    a * (b / 2^256)^iters on host ints."""
     import numpy as np
     import torch
 
-    from halo2_aggregation_tpu_torch.fields import Q, R
-    from halo2_aggregation_tpu_torch.ops import build
+    from halo2_aggregation_tpu_torch.ops import field_ops as fo
     from halo2_aggregation_tpu_torch.ops.limbs import ints_to_tensor, tensor_to_ints
+    from halo2_aggregation_tpu_torch.ops.ntt import mul_chain
 
-    lib = build.load_library()
     sms = torch.cuda.get_device_properties(device).multi_processor_count
     iters, n = 10_000, sms * 32
     rng = np.random.default_rng(SEED + 7)
     out = {"phase": "latency", "blocks_of_one_warp": sms, "dependent_products": iters}
-    for field, (name, p) in enumerate((("Fq", Q), ("Fr", R))):
+    for spec in (fo.FQ, fo.FR):
+        p = spec.p
         xs, ys = ([int.from_bytes(rng.bytes(40), "little") % p for _ in range(n)] for _ in range(2))
         a, b = ints_to_tensor(xs, device), ints_to_tensor(ys, device)
-        got = torch.empty_like(a)
-
-        def run():
-            build.check(lib.h2a_mul_chain(field, a.data_ptr(), b.data_ptr(), got.data_ptr(), sms, iters,
-                                          build.stream_ptr(device)), "h2a_mul_chain")
-
-        ms = cuda_ms(run, reps=5)
+        got = mul_chain(a, b, iters, spec)
+        ms = cuda_ms(lambda: mul_chain(a, b, iters, spec), reps=5)
         rinv = pow(1 << 256, -1, p)
         if tensor_to_ints(got) != [x * pow(y * rinv, iters, p) % p for x, y in zip(xs, ys)]:
-            raise AssertionError(f"mul_chain<{name}> != a (b / 2^256)^{iters} on host ints")
-        out[f"{name}_ns"] = ms * 1e6 / iters
+            raise AssertionError(f"mul_chain<{spec.name}> != a (b / 2^256)^{iters} on host ints")
+        out[f"{spec.name}_ns"] = ms * 1e6 / iters
     emit(out)
     return out
 
@@ -326,26 +265,6 @@ def k1_lanes(n: int, rng):
     if doubling < 1:
         raise AssertionError("no lane's halves meet in the doubling branch of K1's last add")
     return pts, ks, doubling
-
-
-def k1_products(pts, ks) -> int:
-    """Montgomery products K1 needs for these lanes: a half is its table (4
-    doublings, 3 adds), 32 x 4 doublings and an add for every nonzero
-    signed digit but the first (the identity absorbs that one, and every
-    add of an identity point); a lane is two halves, the product by beta
-    and the add of the two where neither is the identity."""
-    from halo2_aggregation_tpu_torch.ops.ec_kernels import glv_split
-
-    eights = int("8" * 33, 16)  # |half| + 0x88..8 has nibbles digit + 8
-    products = len(pts) * 2 * (4 + 128) * P_DOUBLE
-    for p, k in zip(pts, ks):
-        if p is None:
-            continue
-        halves = glv_split(k)
-        adds = sum(max(0, sum(1 for w in range(33) if ((abs(h) + eights) >> (4 * w)) & 15 != 8) - 1)
-                   for h in halves)
-        products += 1 + (2 * 3 + adds + all(halves)) * P_ADD
-    return products
 
 
 # the dependent products of one K1 thread: the table, 32 x 4 doublings, 33
@@ -632,22 +551,14 @@ def phase_jac_sum(device, k1_out):
 
 
 def make_proofs():
-    from halo2_aggregation_tpu_torch.models import simple_example as se
-    from halo2_aggregation_tpu_torch.plonk import kzg
-    from halo2_aggregation_tpu_torch.plonk.keygen import keygen
-    from halo2_aggregation_tpu_torch.plonk.prover import create_proof
+    """The bench's four simple-example proofs (`bench.make_protos`, so
+    that one function makes them): (params, vk, [(instances, proof)], and
+    make_protos' own result, which the `bench` phase takes)."""
+    from halo2_aggregation_tpu_torch.bench import make_protos
 
-    params = kzg.setup(K)
-    circuit = se.MyCircuit(constant=7, a=2, b=3)
-    cs_e, _, asg_e = se.build(circuit.without_witnesses(), k=K)
-    vk, pk = keygen(params, cs_e, asg_e)
-    protos = []
-    for a, b in [(2, 3), (4, 5), (1, 255), (6, 6)]:
-        c = se.MyCircuit(constant=7, a=a, b=b)
-        _, _, asg = se.build(c, k=K)
-        pub = [c.public_output()]
-        protos.append(([pub], create_proof(params, pk, asg, [pub], seed=40 + a)))
-    return params, vk, protos
+    made = make_protos(K)
+    params, vk, protos = made
+    return params, vk, [(insts, proof) for insts, proof, _ in protos], made
 
 
 def phase_k2(params, vk, protos, device):
@@ -799,6 +710,26 @@ def phase_main(params, vk, protos, device):
     })
     phase_profile(params, vk, insts, proofs, device)
     return launches, efws
+
+
+def phase_bench(device, made) -> dict:
+    """The port's benchmark program, `halo2_aggregation_tpu_torch/bench.py`,
+    at its defaults (B = 128, 5 trials, MSM 2^17, NTT 2^16) on the four
+    proofs `make_proofs` made: its line, then value > 0, every gate passed
+    and every roofline fraction in (0, 1.05]."""
+    from halo2_aggregation_tpu_torch import bench
+
+    res = bench.run(device, protos=made)
+    detail = res["detail"]
+    emit({"phase": "bench", **res})
+    fracs = {k: v for k, v in detail.items() if k.endswith("roofline_frac")}
+    if not res["value"] > 0:
+        raise AssertionError(f"bench: value {res['value']!r}")
+    if detail["gates"] != dict.fromkeys(bench.GATES, True):
+        raise AssertionError(f"bench: gates {detail['gates']}")
+    if len(fracs) != 4 or not all(0 < f <= bench.MAX_FRAC for f in fracs.values()):
+        raise AssertionError(f"bench: roofline fractions {fracs}")
+    return res
 
 
 def phase_parallel(params, vk, protos, efws, device) -> None:
@@ -1695,11 +1626,13 @@ def main() -> int:
     js = phase_jac_sum(device, k1_out)
     del k1_out
     done("jac_sum")
-    params, vk, protos = make_proofs()
+    params, vk, protos, made = make_proofs()
     k2 = phase_k2(params, vk, protos, device)
     done("k2")
     launches, efws = phase_main(params, vk, protos, device)
     done("main+profile")
+    phase_bench(device, made)
+    done("bench")
     phase_parallel(params, vk, protos, efws, device)
     done("parallel")
     k1["launches"] = launches["ec_win"]

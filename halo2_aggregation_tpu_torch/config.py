@@ -34,6 +34,10 @@ class H2AConfig:
     k_outer: int = 21
     num_proofs: int = 1  # inner proofs per outer circuit
 
+    # batching / parallelism
+    # proofs per verifier batch: the B of `halo2_aggregation_tpu_torch.bench`
+    batch: int = field(default_factory=lambda: _env_int("H2A_BENCH_BATCH", 128))
+
     constrained_fs: bool = field(
         default_factory=lambda: _env_bool("H2A_CONSTRAINED_FS", True)
     )  # Poseidon transcript with in-circuit challenge enforcement (our

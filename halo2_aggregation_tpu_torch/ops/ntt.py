@@ -15,7 +15,9 @@ layout and 128-lane tiles):
 * `intt_batched`: natural-order evaluations -> bit-reversed coefficients,
   times 1/n (DIF, kernel K4, which multiplies by 1/n as its last pass
   stores), so INTT -> scale -> NTT needs no permutation anywhere;
-* `ew_mul_col`, `ew_mul_scalar`, `pow_series`: kernel K5.
+* `ew_mul_col`, `ew_mul_scalar`, `pow_series`: kernel K5;
+* `mul_chain`: dependent products, lane by lane, in the same source
+  (the product's latency, the bench's field-mul rate).
 
 Both transforms run in place on the stack they are given.  Twiddles come
 from one natural-order table of root powers per direction (`NttTables`),
@@ -331,6 +333,31 @@ def ew_mul_scalar(x: torch.Tensor, s: torch.Tensor, out: torch.Tensor = None) ->
     return out
 
 
+def mul_chain(a: torch.Tensor, b: torch.Tensor, iters: int, spec=fo.FR) -> torch.Tensor:
+    """a * (b / 2^256)^iters elementwise in `spec` (Fq or Fr), for (n, 8)
+    canonical a and b with n a multiple of 32: each lane `iters` dependent
+    Montgomery products (csrc/ew.cu::h2a_mul_chain, n / 32 blocks of one
+    warp), what the product's latency and the bench's field-mul rate are
+    measured on.  Returns a new tensor."""
+    _check(a, "a")
+    _check(b, "b", a.shape)
+    if a.dim() != 2 or a.shape[0] % 32 or iters < 0:
+        raise ValueError(f"mul_chain: (n, 8) with n a multiple of 32 and iters >= 0, got "
+                         f"{tuple(a.shape)}, {iters}")
+    if _device_kind(a, b) == "cpu":
+        out = a
+        for _ in range(iters):
+            out = fo.mont_mul(out, b, spec)
+        return out.clone()
+    lib = build.load_library()
+    out = torch.empty_like(a)
+    rc = lib.h2a_mul_chain(int(spec is fo.FR), a.data_ptr(), b.data_ptr(), out.data_ptr(), a.shape[0] // 32,
+                           iters, build.stream_ptr(a.device))
+    build.check(rc, "h2a_mul_chain")
+    mul_chain.launches += 1
+    return out
+
+
 def pow_series_squares(base: int, k: int, device, start: int = 1) -> torch.Tensor:
     """(k + 1, 8) Montgomery Fr: start, then base^(2^j) for j < k, exact in
     host ints: what K5's series tables are built from (`csrc/ntt.cuh`)."""
@@ -384,5 +411,5 @@ def pow_series(base: int, k: int, device, start: int = 1, bitrev: bool = False) 
     return pow_series_products(pow_series_tables(pow_series_squares(base, k, device, start), k, bitrev), k)
 
 
-for _fn in (ntt_batched, intt_batched, ew_mul_col, ew_mul_scalar, pow_series):
+for _fn in (ntt_batched, intt_batched, ew_mul_col, ew_mul_scalar, pow_series, mul_chain):
     _fn.launches = 0

@@ -52,20 +52,20 @@ def cuda_ms(fn, reps: int = 5) -> float:
     return start.elapsed_time(end) / reps
 
 
-def product_latency(lib, build, device, rng) -> dict:
-    """Nanoseconds a dependent `fe_mul` for Fq and Fr (`h2a_mul_chain`)."""
+def product_latency(device, rng) -> dict:
+    """Nanoseconds a dependent `fe_mul` for Fq and Fr (`ops/ntt.py::mul_chain`)."""
     import torch
+
+    from ..ops import field_ops as fo
+    from ..ops.ntt import mul_chain
 
     sms = torch.cuda.get_device_properties(device).multi_processor_count
     iters = 10_000
     out = {"probe": "latency", "blocks_of_one_warp": sms, "dependent_products": iters}
-    for field, name in enumerate(("Fq", "Fr")):
+    for spec in (fo.FQ, fo.FR):
         a, b = (random_elements(rng, sms * 32, device) for _ in range(2))
-        got = torch.empty_like(a)
-        ms = cuda_ms(lambda: build.check(
-            lib.h2a_mul_chain(field, a.data_ptr(), b.data_ptr(), got.data_ptr(), sms, iters,
-                              build.stream_ptr(device)), "h2a_mul_chain"))
-        out[name + "_ns"] = ms * 1e6 / iters
+        ms = cuda_ms(lambda: mul_chain(a, b, iters, spec))
+        out[spec.name + "_ns"] = ms * 1e6 / iters
     return out
 
 
@@ -203,7 +203,7 @@ def main() -> int:
     emit({"card": smi, "torch": torch.__version__, "cuda": torch.version.cuda})
     t0 = time.perf_counter()
     lib_path = build.build_library()
-    lib = build.load_library()
+    build.load_library()
     emit({"build_s": time.perf_counter() - t0})
     show = False
     for line in (lib_path.parent / "ptxas.log").read_text().splitlines():
@@ -213,7 +213,7 @@ def main() -> int:
             print("ptxas: " + line.strip(), flush=True)
 
     rng = np.random.default_rng(SEED)
-    emit(product_latency(lib, build, device, rng))
+    emit(product_latency(device, rng))
     probe_scalar_mul(co, ek, native, rng, device)
     vk = simple_example_vk()
     probe_field_algebra(vk, device)

@@ -119,11 +119,14 @@ REMOVED = {
         (3, 3, "docstring wording: the reference's top-level circuit"),
     ],
     "config.py": [
-        (36, 36, "mul_nbits: nothing passes it on to the outer circuit"),
-        (38, 63, "the knobs nothing in the port reads: limb_bits, num_limbs, range_table_bits (the gadgets' "
-                 "own constants); device_limb_bits, device_nlimbs (the TPU kernels' 32 x 8-bit limbs); batch, "
-                 "mesh_dp, mesh_mp (the JAX bench's batch and mesh); device_msm (the port's commitments take "
-                 "an explicit `device`); pallas_ec (the TPU verifier's ladder); full_mock (the JAX slow tests')"),
+        (36, 46, "mul_nbits (nothing passes it on to the outer circuit) and the knobs nothing in the port "
+                 "reads: limb_bits, num_limbs, range_table_bits (the gadgets' own constants); device_limb_bits, "
+                 "device_nlimbs (the TPU kernels' 32 x 8-bit limbs)"),
+        (48, 63, "batch: a comment of TPU rates, and H2A_BENCH_BATCH read when an H2AConfig is made (a "
+                 "default_factory), not when the module is imported, so that from_env follows it; then the "
+                 "knobs nothing in the port reads: mesh_dp, mesh_mp (the JAX mesh; parallel/ takes its mesh "
+                 "from make_mesh); device_msm (the port's commitments take an explicit `device`); pallas_ec "
+                 "(the TPU verifier's ladder); full_mock (the JAX slow tests')"),
         (69, 71, "phase_d: the example's switch; the port's outer prover always runs phase D"),
         (90, 90, "from_env's H2A_MUL_NBITS, with mul_nbits"),
         (97, 102, "mesh_shape: the JAX mesh's (dp, mp)"),

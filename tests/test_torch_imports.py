@@ -120,8 +120,32 @@ def test_every_module_imports_without_jax():
                  "fields", "utils.native", "oracle.pairing", "plonk.prover_native", "aggregation.chips",
                  "models.aggregation_circuit", "convert", "tools.outer_prove", "api", "config",
                  "utils.jobs", "utils.artifacts", "aggregation.tree", "parallel", "parallel.mesh",
-                 "parallel.sharded_msm", "parallel.batch_verify", "tools.dryrun_multichip"):
+                 "parallel.sharded_msm", "parallel.batch_verify", "tools.dryrun_multichip", "bench",
+                 "tools.measure"):
         assert "halo2_aggregation_tpu_torch." + name in imported
+
+
+def test_bench_runs_with_jax_unimportable():
+    """`halo2_aggregation_tpu_torch.bench`, every section, on CPU tensors at
+    B = 1 and small MSM, NTT and mul-chain sizes, with `jax` and the JAX
+    package unimportable: the result line has every gate passed."""
+    script = POISON + textwrap.dedent(
+        """
+        import json
+        from halo2_aggregation_tpu_torch import bench
+        res = bench.run("cpu", batch=1, trials=1, msm_log2=4, ntt_log2=3, mul_log2=5)
+        assert res["value"] > 0 and res["detail"]["gates"] == dict.fromkeys(bench.GATES, True)
+        print(json.dumps(res))
+        """
+    ) + NOTHING_LOADED + 'print("BENCH_OK")\n'
+    env = dict(os.environ, PYTHONPATH=str(ROOT), OMP_NUM_THREADS="1")
+    res = subprocess.run(
+        [sys.executable, "-c", script], cwd=ROOT, env=env,
+        capture_output=True, text=True, timeout=300,
+    )
+    assert res.returncode == 0, res.stderr[-3000:]
+    assert "BENCH_OK" in res.stdout
+    assert '"metric": "proofs_aggregated_per_s"' in res.stdout
 
 
 def test_dryrun_runs_with_jax_unimportable(tmp_path):
@@ -203,6 +227,7 @@ def test_cuda_request_raises_without_a_card():
         ("tools.outer_prove", "run_outer"),
         ("parallel.mesh", "make_mesh"),
         ("parallel.mesh", "run_ranks"),
+        ("bench", "run"),
     ],
 )
 def test_entry_points_default_to_the_card(module, name):
