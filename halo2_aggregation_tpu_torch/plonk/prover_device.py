@@ -18,8 +18,11 @@ host.  A device failure raises; it is never hidden behind a proof finished
 on the host.  Everything else is the original's host code, unchanged in
 effect: grand products, the lookup permutation, h's extended-domain INTT
 and piece NTTs, the barycentric evaluations and the multiopen witnesses.
-So the proof bytes equal `create_proof_native`'s (pinned by
-tests/test_torch_prover.py and `chip_smoke.py`).
+The columns from Python ints and the random draws (blinds, the vanishing
+random column) go through `columns.py`, which gives the original's values
+and generator states on whole arrays.  So the proof bytes equal
+`create_proof_native`'s (pinned by tests/test_torch_prover.py and
+`chip_smoke.py`).
 """
 
 from __future__ import annotations
@@ -32,13 +35,12 @@ from ..device import resolve_device
 from ..fields import FR_DELTA, FR_GENERATOR, R, fr_omega
 from ..utils import native
 from ..utils.transcript import Blake2bWrite
-from ..utils.u64 import ints_to_u64
 from .circuit import Any, Assignment
+from .columns import advice_column, col_from_ints_fast, rand_fr_column
 from .engine import (
     Barycentric,
     NativeDomain,
     NativeVecOps,
-    col_from_ints,
     eval_at,
     from_mont,
     mont_scalar,
@@ -50,7 +52,6 @@ from .engine import (
 from .keygen import ProvingKey
 from .kzg import DeviceSRS, Params
 from .protocol import compress_expressions, query_schedule, rotation_sets
-from .prover import _rand_fr
 from .prover_native import _as_plain_u64, _permute_lookup_u64
 from .quotient_device import DeviceQuotient
 
@@ -145,8 +146,7 @@ def create_proof_device(
     t.common_scalar(pk.vk.hash_scalar())
     inst_plain = []
     for ci in range(cs.num_instance_columns):
-        vals = [int(v) % R for v in instances[ci]]
-        col = col_from_ints(vals)
+        col = col_from_ints_fast(list(instances[ci]))
         if col.shape[0] < n:
             col = np.vstack([col, np.zeros((n - col.shape[0], 4), np.uint64)])
         inst_plain.append(col)
@@ -162,12 +162,10 @@ def create_proof_device(
     adv_raw_plain = []
     advice_plain = []
     for ci in range(cs.num_advice_columns):
-        raw = col_from_ints(
-            [0 if v is None else v for v in assignment.advice[ci]]
-        )
+        raw = advice_column(assignment.advice[ci])
         adv_raw_plain.append(raw)
         col = raw.copy()
-        col[usable:] = ints_to_u64([_rand_fr(rng) for _ in range(n - usable)])
+        col[usable:] = rand_fr_column(rng, n - usable)
         advice_plain.append(col)
         t.write_point(commit(col))
         register(("advice", ci), col)
@@ -205,8 +203,8 @@ def create_proof_device(
             from_mont(a_comp_m), from_mont(s_comp_m), usable
         )
         # rng draw order matches the spec prover: a blinds, then s blinds
-        blinds_a = ints_to_u64([_rand_fr(rng) for _ in range(n - usable)])
-        blinds_s = ints_to_u64([_rand_fr(rng) for _ in range(n - usable)])
+        blinds_a = rand_fr_column(rng, n - usable)
+        blinds_s = rand_fr_column(rng, n - usable)
         ap_plain = np.vstack([ap_u, blinds_a])
         sp_plain = np.vstack([sp_u, blinds_s])
         lookups.append(
@@ -265,10 +263,7 @@ def create_proof_device(
         )
         prev_end = scalar_to_int(z_m[usable : usable + 1])
         zcol = from_mont(z_m)  # rows 0..usable
-        blinds = ints_to_u64(
-            [_rand_fr(rng) for _ in range(n - usable - 1)]
-        ) if n - usable - 1 else np.zeros((0, 4), np.uint64)
-        zcol = np.vstack([zcol, blinds])
+        zcol = np.vstack([zcol, rand_fr_column(rng, n - usable - 1)])
         perm_z_plain.append(zcol)
         t.write_point(commit(zcol))
     for ci, c in enumerate(perm_z_plain):
@@ -287,10 +282,7 @@ def create_proof_device(
             num_m[:usable], den_m[:usable], one_m.reshape(-1)
         )
         zcol = from_mont(z_m)
-        blinds = ints_to_u64(
-            [_rand_fr(rng) for _ in range(n - usable - 1)]
-        ) if n - usable - 1 else np.zeros((0, 4), np.uint64)
-        zcol = np.vstack([zcol, blinds])
+        zcol = np.vstack([zcol, rand_fr_column(rng, n - usable - 1)])
         lk["z_plain"] = zcol
         t.write_point(commit(zcol))
     for li, lk in enumerate(lookups):
@@ -298,7 +290,7 @@ def create_proof_device(
     log("lookup products")
 
     # --- 5. vanishing random poly (verifier.rs:419-421) ---------------------
-    r_plain = ints_to_u64([_rand_fr(rng) for _ in range(n)])
+    r_plain = rand_fr_column(rng, n)
     t.write_point(commit(r_plain))
     register(("vanishing_r", 0), r_plain)
     log("vanishing random committed")
