@@ -35,7 +35,9 @@ nonzero before the last line):
      on a real B = 128 batch against its plain version (bit for bit), 8
      lanes against the host IntOps formulas, a ragged batch against the full
      launch, and the three-output tape against the first three outputs;
-  4. the main path: result True, quads equal the host `verify_proof`, a
+  4. the main path: result True, quads equal the host `verify_proof`, the
+     host parse `parse_batch` equal to the loop of `parse_proof` (both
+     timed, and the vk's point layout that parse_batch finds), a
      tampered proof and a wrong public input rejected, all three kernels
      launched by the main path, median of 5 wall times, the stage split and
      peak device memory; once more with method="ladder" (K8), with the
@@ -637,8 +639,8 @@ def phase_main(params, vk, protos, device):
 
     from halo2_aggregation_tpu_torch.ops.ec_kernels import jac_segment_sum, scalar_mul_ladder, scalar_mul_win
     from halo2_aggregation_tpu_torch.plonk.fa_fused import fa_tape_eval
-    from halo2_aggregation_tpu_torch.plonk.verifier import verify_proof
-    from halo2_aggregation_tpu_torch.plonk.verifier_device import verify_batch
+    from halo2_aggregation_tpu_torch.plonk.verifier import parse_proof, verify_proof
+    from halo2_aggregation_tpu_torch.plonk.verifier_device import parse_batch, point_layout, verify_batch
 
     insts = [protos[i % 4][0] for i in range(B)]
     proofs = [protos[i % 4][1] for i in range(B)]
@@ -661,6 +663,26 @@ def phase_main(params, vk, protos, device):
         if not ok_h or tuple(efw) != tuple(efws[i]):
             raise AssertionError(f"quad of proof {i} != host verify_proof")
         host_quads.append(tuple(efw))
+
+    # the host parse: parse_batch (one native decompression call for the
+    # batch's points) against the loop of parse_proof it replaces
+    comms = [[params.commit_lagrange(col) for col in pub] for pub, _ in protos]
+    comms = [comms[i % 4] for i in range(B)]
+    t0 = time.perf_counter()
+    parsed = parse_batch(vk, comms, proofs)
+    t1 = time.perf_counter()
+    parsed_loop = [parse_proof(vk, c, p) for c, p in zip(comms, proofs)]
+    parse_split = {"batch_s": t1 - t0, "loop_s": time.perf_counter() - t1}
+    if parsed != parsed_loop:
+        raise AssertionError("parse_batch != the loop of parse_proof")
+    # parse_batch's share that finds the vk's point layout (one parse_proof
+    # over no bytes), median of 20
+    layout_s = []
+    for _ in range(20):
+        t0 = time.perf_counter()
+        point_layout(vk)
+        layout_s.append(time.perf_counter() - t0)
+    parse_split["layout_s"] = statistics.median(layout_s)
 
     # the same path with K8 in place of K1
     scalar_mul_ladder.launches = 0
@@ -709,7 +731,8 @@ def phase_main(params, vk, protos, device):
     split = {k: statistics.median(r[k] for r in runs) for k in ("parse", "prep", "device", "pairing")}
     emit({
         "phase": "main", "batch": B, "k": K, "ok": ok, "launches": launches,
-        "quads_match_host": len(protos), "ladder_ok": ok_l, "ladder_wall_s": ladder_wall,
+        "quads_match_host": len(protos), "parse_batch_equal_to_loop": True, "parse_split": parse_split,
+        "ladder_ok": ok_l, "ladder_wall_s": ladder_wall,
         "rejected": rejected,
         "wall_s_median": wall, "wall_s_runs": [r["wall"] for r in runs],
         "proofs_per_s": B / wall, "stage_s_median": split,

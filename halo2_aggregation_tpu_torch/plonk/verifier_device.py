@@ -3,8 +3,11 @@
 Counterpart of `halo2_aggregation_tpu/plonk/verifier_tpu.py`'s production
 path (`verify_batch(aggregate=True)` -> `verify_algebra_fast`):
 
-1. host: `parse_proof` replays each transcript (`plonk/verifier.py`), then
-   `batch_proofs` and `fast_prep_gathered` build the batch;
+1. host: `commit_instance` commits each instance column over its nonzero
+   rows, `parse_batch` decompresses every proof point of the batch in one
+   native call and replays each transcript through `parse_proof`
+   (`plonk/verifier.py`), then `batch_proofs` and `fast_prep_gathered`
+   build the batch;
 2. device: `fast_device_gathered` -> `fast_device`: the fused field algebra
    (kernel K2) gives h_eval and the e-lane's scalar, one batched scalar-mul
    runs over all B x (M + 1) multiopen lanes including the e-lane (kernel
@@ -29,8 +32,10 @@ code: that module imports jax, so the port cannot import them.
 
 from __future__ import annotations
 
+import bisect
 import time
 from dataclasses import dataclass
+from functools import partial
 from typing import List
 
 import numpy as np
@@ -45,8 +50,12 @@ from ..ops.limbs import ints_to_np
 from ..oracle import curve as oc
 from ..oracle.pairing import multi_pairing_check_fast
 from ..utils import native
+from ..utils.decompress import BadPoint, g1_decompress_batch
 from ..utils.serialization import g1_compress
+from ..utils.transcript import Blake2bRead
+from ..utils.u64 import ints_to_u64
 from .fa_fused import fa_gather, fa_program, fa_schedule, field_algebra_fused
+from . import kzg
 from .keygen import VerifyingKey
 from .protocol import LookupEvals, PermutationSetEvals, query_schedule, rotation_sets
 from .protocol_ops import TorchLimbOps
@@ -615,6 +624,100 @@ def check_aggregate(quads, params) -> bool:
     return multi_pairing_check_fast([(W, params.s_g2), (oc.g1_neg(RHS), params.g2)])
 
 
+class _LayoutRead(Blake2bRead):
+    """A transcript over no proof: reads zeros, gives the generator for each
+    point and records the point's byte offset, so `parse_proof` run on it
+    yields its read order and nothing else."""
+
+    def __init__(self, proof: bytes):
+        super().__init__(proof)
+        self.points = []
+
+    def _take(self, n: int) -> bytes:
+        self.off += n
+        return bytes(n)
+
+    def read_point(self):
+        self.points.append(self.off)
+        self._take(32)
+        self.common_point(G1_GEN)
+        return G1_GEN
+
+
+class _BatchRead(Blake2bRead):
+    """`Blake2bRead` whose points were decompressed ahead: `read_point` takes
+    its 32 bytes as before (so "transcript exhausted" comes where it came),
+    then the entry of its slot, raising a refused encoding's ValueError."""
+
+    def __init__(self, slots: dict, points: list, proof: bytes):
+        super().__init__(proof)
+        self.slots, self.points = slots, points
+
+    def read_point(self):
+        off = self.off
+        self._take(32)
+        i = self.slots.get(off)
+        if i is None or i >= len(self.points):
+            raise RuntimeError(f"a point read at byte {off}, outside the vk's point layout")
+        p = self.points[i]
+        if isinstance(p, BadPoint):
+            raise ValueError(p.message)
+        self.common_point(p)
+        return p
+
+
+def point_layout(vk: VerifyingKey) -> tuple:
+    """The byte offsets of the points `parse_proof` reads, ascending: they
+    depend on the constraint system alone and are found by `parse_proof`
+    itself on a transcript that records them (one replay over no bytes and
+    no decompression, so a batch finds them anew rather than caching)."""
+    t = _LayoutRead(b"")
+    parse_proof(vk, [], b"", transcript_cls=lambda _: t)
+    return tuple(t.points)
+
+
+def parse_batch(vk: VerifyingKey, inst_comms_list, proofs) -> List[ParsedProof]:
+    """`[parse_proof(vk, c, p) for c, p in zip(inst_comms_list, proofs)]`,
+    with the same first error, but every point of every proof decompressed
+    in one `g1_decompress_batch` call before the replays. A slot is taken
+    only where it lies wholly inside its proof; past that, the replay's
+    read raises "transcript exhausted" as before."""
+    pairs = list(zip(inst_comms_list, proofs))
+    layout = point_layout(vk)
+    ends = [off + 32 for off in layout]
+    chunks, counts = [], []
+    for _, proof in pairs:
+        c = bisect.bisect_right(ends, len(proof))
+        chunks.extend(proof[off : off + 32] for off in layout[:c])
+        counts.append(c)
+    points = g1_decompress_batch(np.frombuffer(b"".join(chunks), dtype="<u8").reshape(-1, 4))
+    slots = {off: i for i, off in enumerate(layout)}
+    parsed, start = [], 0
+    for (comms, proof), c in zip(pairs, counts):
+        parsed.append(parse_proof(vk, comms, proof, partial(_BatchRead, slots, points[start : start + c])))
+        start += c
+    return parsed
+
+
+def commit_instance(params, col, usable_rows: int):
+    """`params.commit_lagrange(col)` over the column's nonzero rows only (the
+    values taken mod R as it takes them): an instance column has a few
+    nonzero rows in n. A column longer than `usable_rows` raises
+    `verify_proof`'s "instance too large"; the zero column is the identity.
+    The sparse sum reads a plain `kzg.Params`' Lagrange points; a `Params`
+    that overrides `commit_lagrange` is answered by its own method."""
+    vals = [int(v) % R for v in col]
+    if len(vals) > usable_rows:
+        raise ValueError("instance too large")
+    rows = [i for i, v in enumerate(vals) if v]
+    if not rows:
+        return None
+    if not native.available() or type(params).commit_lagrange is not kzg.Params.commit_lagrange:
+        return params.commit_lagrange(vals)
+    return native.g1_msm_u64(params.g_lagrange_u64[rows], params.g_lagrange_inf[rows],
+                             ints_to_u64([vals[i] for i in rows]))
+
+
 def verify_batch(
     params,
     vk: VerifyingKey,
@@ -627,7 +730,9 @@ def verify_batch(
     method: str = "win",
     fast: bool = True,
 ):
-    """Full batched verification: host transcript replay, device algebra
+    """Full batched verification: host instance commitments and transcript
+    replay (`commit_instance` for every column, which refuses a column past
+    the usable rows as `verify_proof` does, then `parse_batch`), device algebra
     (K2, the scalar-mul by `method`, "win" for K1 or "ladder" for K8, and
     the lane sums on `device`), host pairing.  With `fast=False` the
     device algebra is the sequential `verify_algebra` (plain field algebra,
@@ -638,10 +743,9 @@ def verify_batch(
     the quads on the host) and pairing."""
     device = resolve_device(device)
     t0 = time.perf_counter()
-    parsed = []
-    for insts, proof in zip(instances_list, proofs):
-        inst_comms = [params.commit_lagrange(col) for col in insts]
-        parsed.append(parse_proof(vk, inst_comms, proof))
+    usable = vk.cs.usable_rows(vk.n)
+    inst_comms = [[commit_instance(params, col, usable) for col in insts] for insts in instances_list]
+    parsed = parse_batch(vk, inst_comms, proofs)
     t1 = time.perf_counter()
     batch = batch_proofs(vk, parsed, device)
     if fast:

@@ -151,9 +151,11 @@ def rank_run(vk, parsed, shapes, device, msm_column=None) -> list:
 def parse_all(params, vk, protos, B: int) -> list:
     """The protos cycled to B proofs, each parsed (one transcript replay and
     instance commitment a distinct proof)."""
-    from ..plonk.verifier import parse_proof
+    from ..plonk.verifier_device import commit_instance, parse_batch
 
-    parsed = [parse_proof(vk, [params.commit_lagrange(c) for c in insts], proof) for insts, proof in protos]
+    usable = vk.cs.usable_rows(vk.n)
+    parsed = parse_batch(vk, [[commit_instance(params, c, usable) for c in insts] for insts, _ in protos],
+                         [proof for _, proof in protos])
     return [parsed[i % len(parsed)] for i in range(B)]
 
 

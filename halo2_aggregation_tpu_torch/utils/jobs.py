@@ -79,8 +79,9 @@ def aggregate_checkpointed(
     Each chunk's algebra runs on `device`: K2, K1 and the lane sums on a
     card, their plain versions with "cpu"."""
     from ..device import resolve_device
-    from ..plonk.verifier_device import batch_proofs, check_aggregate, quads_to_ints, verify_algebra_fast
-    from ..plonk.verifier import parse_proof
+    from ..plonk.verifier_device import (
+        batch_proofs, check_aggregate, commit_instance, parse_batch, quads_to_ints, verify_algebra_fast,
+    )
 
     device = resolve_device(device)
     log = logger or StageLogger()
@@ -110,10 +111,9 @@ def aggregate_checkpointed(
                 for q in done[key]
             )
             continue
-        parsed = []
-        for insts, proof in zip(chunk_insts, chunk_proofs):
-            inst_comms = [params.commit_lagrange(col) for col in insts]
-            parsed.append(parse_proof(vk, inst_comms, proof))
+        usable = vk.cs.usable_rows(vk.n)
+        inst_comms = [[commit_instance(params, col, usable) for col in insts] for insts in chunk_insts]
+        parsed = parse_batch(vk, inst_comms, chunk_proofs)
         batch = batch_proofs(vk, parsed, device)
         chunk_quads = quads_to_ints(verify_algebra_fast(vk, batch, parsed))
         with open(checkpoint_path, "a") as f:

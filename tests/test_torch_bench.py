@@ -166,7 +166,7 @@ def native_mul(points: JacPoint, scalars, off_lane=None, nbits=256) -> JacPoint:
 @pytest.fixture(scope="module")
 def one_proof(protos):
     _, vk, pr = protos
-    parsed = bench.parse_batch(vk, pr, 1)
+    parsed = bench.parse_cycled(vk, pr, 1)
     return vk, batch_proofs(vk, parsed, "cpu"), parsed
 
 

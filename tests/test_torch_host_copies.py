@@ -142,7 +142,9 @@ REMOVED = {
     ],
     "utils/jobs.py": [
         (69, 81, "aggregate_checkpointed's `device`, its docstring, the port's verifier_device imports"),
-        (112, 117, "the batch step: batch_proofs on `device`, quads_to_ints in place of jac_to_ints"),
+        (108, 117, "the batch step: the instance columns by verifier_device.commit_instance and the chunk's "
+                   "transcripts by verifier_device.parse_batch in place of a loop of commit_lagrange and "
+                   "parse_proof, batch_proofs on `device`, quads_to_ints in place of jac_to_ints"),
     ],
     "aggregation/tree.py": [
         (9, 11, "module docstring: phase D through the outer prover's prove_and_save on the card"),
