@@ -70,7 +70,11 @@ nonzero before the last line):
      equals one `msm`; per rank the device stage, the collectives' time and
      the launches (K2 and K1 once a formulation, the segmented sum twice:
      the lanes, then the gathered mp partials; K7 and the segmented sum once
-     a sharded MSM);
+     a sharded MSM); on a host with two cards or more, also the dry run
+     across every card (`run_cards`: one rank a card over NCCL, the same
+     checks on `make_mesh`'s mesh, N x 1 and 1 x N, each rank's tensors and
+     kernels on its own card, and the scale-out against one card), on a
+     line of its own;
   5. ntt: the device's Montgomery product alone on 2^20 random pairs and
      the edge values, for Fq and Fr, against the plain PyTorch product; K3
      and K4 at k = 1, 5, 9, 13 and 16 on 2 random columns, K5's power series
@@ -836,6 +840,14 @@ def phase_parallel(params, vk, protos, efws, device) -> None:
         "padded_k1_equal_unpadded": True, "seconds": seconds, "groups": groups,
         "note": "two ranks share one card: no speed-up is possible or claimed",
     })
+    world = torch.cuda.device_count()
+    if world >= 2:
+        t0 = time.perf_counter()
+        groups = dm.run_cards(params, vk, protos, efws, world)
+        emit({"phase": "parallel_cards", "world": world, "batch": B, "cards": dm.cards(),
+              "tolerance": "exact: equal affine points and equal bits", "quads_equal_main": True,
+              "check_aggregate": True, "sharded_msm_equal_msm": True, "h_eval_equal_field_algebra": True,
+              "placement": "rank r on card r only", "seconds": time.perf_counter() - t0, "groups": groups})
 
 
 def device_events(prof) -> dict:

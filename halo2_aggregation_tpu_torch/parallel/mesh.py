@@ -62,13 +62,14 @@ def gather(t: torch.Tensor, group) -> torch.Tensor:
     return torch.stack(parts).to(t.device)
 
 
-def _rank_main(rank, fn, world_size, device_type, backend, tmp, args):
-    if device_type == "cuda":
-        torch.cuda.set_device(rank % torch.cuda.device_count())
+def _rank_main(rank, fn, world_size, cards, backend, tmp, args):
+    if cards is not None:
+        torch.cuda.set_device(cards[rank])
     else:
         torch.set_num_threads(1)  # the ranks share the host's cores
     dist.init_process_group(
-        backend, init_method="file://" + os.path.join(tmp, "rendezvous"), world_size=world_size, rank=rank
+        backend, init_method="file://" + os.path.join(tmp, "rendezvous"), world_size=world_size, rank=rank,
+        device_id=torch.device("cuda", cards[rank]) if backend == "nccl" else None,
     )
     try:
         result = fn(*args)
@@ -79,22 +80,37 @@ def _rank_main(rank, fn, world_size, device_type, backend, tmp, args):
         pickle.dump(result, f)
 
 
+def check_cards(world_size: int) -> None:
+    """Raise ValueError unless `world_size` cards are visible: an NCCL rank
+    takes a card of its own (NCCL refuses two ranks on one device)."""
+    n = torch.cuda.device_count()
+    if world_size > n:
+        raise ValueError(f"world {world_size} needs one card a rank, {n} visible")
+
+
 def run_ranks(fn, world_size: int, *, device="cuda", backend: str | None = None, args=()) -> list:
     """Run `fn(*args)` on `world_size` ranks and return their results, rank 0
     first.  Each rank is a spawned process in one process group (`backend`:
-    NCCL on the card, gloo on the CPU by default; gloo lets several ranks
-    share one card, which NCCL refuses); a rank on the card takes device
-    rank % device_count, a CPU rank one thread.  `fn` and `args` are pickled
-    to the ranks and each result back, so keep results to host objects.  A
-    rank that raises stops the others and raises here
+    NCCL on the card, gloo on the CPU by default).  On the card an NCCL rank
+    r takes card r (`check_cards` raises before any rank starts), and gloo
+    ranks share the caller's card.  A CPU rank takes one thread.  `fn` and
+    `args` are pickled to the ranks and each result back, so keep results to
+    host objects.  A rank that raises stops the others and raises here
     (`torch.multiprocessing.ProcessRaisedException`)."""
     device = resolve_device(device)
     if world_size < 1:
         raise ValueError(f"world_size = {world_size}: expected >= 1")
     backend = backend or ("nccl" if device.type == "cuda" else "gloo")
+    cards = None
+    if device.type == "cuda":
+        if backend == "gloo":
+            cards = [device.index] * world_size
+        else:
+            check_cards(world_size)
+            cards = list(range(world_size))
     with tempfile.TemporaryDirectory(prefix="h2a-ranks-") as tmp:
         torch.multiprocessing.spawn(
-            _rank_main, args=(fn, world_size, device.type, backend, tmp, tuple(args)), nprocs=world_size, join=True
+            _rank_main, args=(fn, world_size, cards, backend, tmp, tuple(args)), nprocs=world_size, join=True
         )
         results = []
         for rank in range(world_size):
