@@ -12,7 +12,8 @@ proof's n = 2^21 (K7 and K9), and the prover's, `keygen_device` and
 `create_proof_device(..., device="cuda")` with the quotient and every
 commitment on the card; then the aggregation product, the k = 21 outer
 proof of one inner proof (`tools/outer_prove.py::run_outer`), held byte for
-byte to `docs/artifacts/outer_n1_k21.*`.
+byte to `docs/artifacts/outer_n1_k21.*`, and the k = 22 aggregation of two
+inner proofs, held byte for byte to `docs/artifacts/outer_n2_k22.*`.
 
 Phases (each prints on its own lines; any failure raises and exits
 nonzero before the last line):
@@ -116,7 +117,15 @@ nonzero before the last line):
      verifier's; the outer proof through `verify_batch(aggregate=True)` at
      B = 1 and 2 (accepted, quads equal) and with a byte flipped
      (rejected); the stage split, peak device memory and each kernel's
-     launches in the phase (K3-K7, K2, K1 and the segmented sum, each > 0).
+     launches in the phase (K3-K7, K2, K1 and the segmented sum, each > 0);
+ 10. outer_n2: `run_outer` at N = 2, k = 22 (two inner proofs, the
+     `AggregationCircuit` with its in-circuit lambda-fold, 2.67M rows) on
+     the card with its own k = 22 `DeviceSRS`: the same checks against
+     `docs/artifacts/outer_n2_k22.*`, the in-circuit fold equal to the
+     host's; `verify_batch(aggregate=True)` at B = 2 over [this proof, the
+     checked-in `outer_n2_k22b.proof`] accepted with both metas' quads, and
+     the pair with a byte flipped rejected; the stage split, peak device
+     memory and RSS, and the same kernels launched.
 Then one JSON line with the kernels' numbers (each with its launches on its
 path, its time, its plain version's time, its bound and `library_ms`: null,
 as no PyTorch call computes 256-bit modular arithmetic; the lane-serial
@@ -1567,6 +1576,119 @@ def phase_prove(device, k: int = 16) -> dict:
     return launches
 
 
+OUTER_PATH = ("ntt", "intt", "ew", "quotient_tape", "msm_s5", "ec_win", "fa_tape", "jac_segment_sum")
+
+
+def outer_run(device, stem: str, num_proofs: int, srs=None) -> tuple:
+    """`tools/outer_prove.py::run_outer` on the card at the N, k and
+    transcript of the artifact at `stem`, held to it
+    (`outer_prove.expect_checks`: public inputs, vk, proof bytes, instance
+    commitment, quad), with the in-circuit quads (and, for N > 1, the fold)
+    against the host's and the host verify.  Returns (the result, the
+    checks, the wall, the NTT's and MSM's launches in the run)."""
+    import torch
+
+    from halo2_aggregation_tpu_torch.config import H2AConfig
+    from halo2_aggregation_tpu_torch.models.aggregation_circuit import fold_quads_host
+    from halo2_aggregation_tpu_torch.tools.outer_prove import expect_checks, run_outer
+
+    with open(stem + ".meta.json") as f:
+        meta = json.load(f)
+    cfg = H2AConfig(k_inner=9, k_outer=meta["k"], num_proofs=num_proofs, constrained_fs=meta["constrained_fs"])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    reset_ntt_launches()
+    reset_msm_launches()
+    t0 = time.perf_counter()
+    res = run_outer(cfg, device=device, srs=srs)
+    wall = time.perf_counter() - t0
+    launches = {**ntt_launches(), **msm_launches()}
+    checks = expect_checks(res, stem)
+    checks["quad_equal_to_host"] = res["in_circuit_quads"] == res["inner_quads"]
+    if num_proofs > 1:
+        want = fold_quads_host(res["inner_quads"], constrained_fs=cfg.constrained_fs)
+        checks["fold_equal_to_host"] = res["in_circuit_fold"] == want
+    checks["verified"] = res["verified"]
+    return res, checks, wall, launches
+
+
+def verify_on_card(params, vk, pis: list, proofs: list, efws: list, device) -> tuple:
+    """`verify_batch(aggregate=True)` on the card over `proofs` (each with
+    its public inputs).  Returns (accepted with quads equal to `efws`, the
+    timings)."""
+    import torch
+
+    from halo2_aggregation_tpu_torch.plonk.verifier_device import verify_batch
+
+    t = {}
+    t1 = time.perf_counter()
+    ok, quads = verify_batch(params, vk, [[p] for p in pis], proofs, device=device, aggregate=True, timings=t)
+    torch.cuda.synchronize()
+    t["wall"] = time.perf_counter() - t1
+    return ok is True and [tuple(map(tuple, q)) for q in quads] == list(efws), t
+
+
+def flipped_byte_verdict(params, vk, pis: list, proofs: list, device):
+    """The batch with one evaluation's byte of the first proof flipped (the
+    transcript still parses) through `verify_batch(aggregate=True)` on the
+    card: how it was rejected, or None when it was accepted."""
+    from halo2_aggregation_tpu_torch.plonk.verifier_device import verify_batch
+
+    bad = bytearray(proofs[0])
+    bad[len(bad) - 64 * 5] ^= 1
+    try:
+        ok_bad, _ = verify_batch(params, vk, [[p] for p in pis], [bytes(bad), *proofs[1:]], device=device,
+                                 aggregate=True)
+        return "check_failed" if ok_bad is False else None
+    except ValueError as e:
+        return f"parse_raised: {e}"
+
+
+def reset_verifier_launches() -> None:
+    from halo2_aggregation_tpu_torch.ops.ec_kernels import jac_segment_sum, scalar_mul_win
+    from halo2_aggregation_tpu_torch.plonk.fa_fused import fa_tape_eval
+
+    for fn in (scalar_mul_win, fa_tape_eval, jac_segment_sum):
+        fn.launches = 0
+
+
+def verifier_launches() -> dict:
+    from halo2_aggregation_tpu_torch.ops.ec_kernels import jac_segment_sum, scalar_mul_win
+    from halo2_aggregation_tpu_torch.plonk.fa_fused import fa_tape_eval
+
+    return {"ec_win": scalar_mul_win.launches, "fa_tape": fa_tape_eval.launches,
+            "jac_segment_sum": jac_segment_sum.launches}
+
+
+def outer_emit(name: str, circuit: str, res: dict, checks: dict, wall: float, launches: dict, device,
+               **extra) -> None:
+    """The phase's line; raises on a false check or a kernel of the path
+    not launched."""
+    import hashlib
+
+    import torch
+
+    from halo2_aggregation_tpu_torch.plonk.fa_fused import fa_tape, shared_bytes
+    from halo2_aggregation_tpu_torch.tools.outer_prove import peak_rss_mib
+
+    proof = res["proof"]
+    tape = fa_tape(res["vk"], e_scalar=True)  # K2's program for the outer vk
+    emit({
+        "phase": name, "circuit": circuit, "k": res["k_outer"], "rows": res["rows"], **checks, **extra,
+        "proof_bytes": len(proof), "proof_sha256": hashlib.sha256(proof).hexdigest(),
+        "k2_tape": {"instrs": int(tape.instrs.shape[0]), "temps": tape.n_temps, "shared_bytes": shared_bytes(tape)},
+        "wall_s": wall, "seconds": res["seconds"],
+        "peak_device_mib": torch.cuda.max_memory_allocated(device) / 2**20, "peak_rss_mib": peak_rss_mib(),
+        "launches": launches,
+    })
+    failed = [n for n, ok in checks.items() if ok is not True]
+    if failed:
+        raise AssertionError(f"{name}: {failed} false")
+    for kernel in OUTER_PATH:
+        if launches[kernel] < 1:
+            raise AssertionError(f"{name}: {kernel} was not launched: {launches}")
+
+
 def phase_outer(device, srs=None) -> dict:
     """The aggregation product: `tools/outer_prove.py::run_outer` at N = 1,
     k = 21 on the card (one inner proof, the outer circuit, keygen_device,
@@ -1577,84 +1699,56 @@ def phase_outer(device, srs=None) -> dict:
     launches of each kernel in this phase."""
     import hashlib
 
-    import torch
-
-    from halo2_aggregation_tpu_torch.config import H2AConfig
-    from halo2_aggregation_tpu_torch.ops.ec_kernels import jac_segment_sum, scalar_mul_win
-    from halo2_aggregation_tpu_torch.plonk.fa_fused import fa_tape, fa_tape_eval, shared_bytes
-    from halo2_aggregation_tpu_torch.plonk.verifier_device import verify_batch
-    from halo2_aggregation_tpu_torch.tools.outer_prove import run_outer
-    from halo2_aggregation_tpu_torch.utils.artifacts import load_vk
-
     stem = os.path.join(ROOT, "docs", "artifacts", "outer_n1_k21")
-    with open(stem + ".meta.json") as f:
-        meta = json.load(f)
-    with open(stem + ".proof", "rb") as f:
-        want_proof = f.read()
-    want_vk = load_vk(stem)
-    cfg = H2AConfig(k_inner=9, k_outer=meta["k"], num_proofs=1, constrained_fs=meta["constrained_fs"])
-
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats(device)
-    reset_ntt_launches()
-    reset_msm_launches()
-    t0 = time.perf_counter()
-    res = run_outer(cfg, device=device, srs=srs)
-    wall = time.perf_counter() - t0
-    launches = {**ntt_launches(), **msm_launches()}
-    vk, proof, pis = res["vk"], res["proof"], res["public_inputs"]
-    checks = {
-        "pis_equal_to_meta": pis == [int(v) for v in meta["public_inputs"]],
-        "quad_equal_to_host": res["in_circuit_quads"] == res["inner_quads"],
-        "vk_equal_to_artifact": (vk.hash_scalar() == want_vk.hash_scalar()
-                                 and vk.fixed_commitments == want_vk.fixed_commitments
-                                 and vk.sigma_commitments == want_vk.sigma_commitments),
-        "proof_equal_to_artifact": proof == want_proof,
-        "inst_comm_equal_to_meta": res["inst_comm"] == tuple(int(c) for c in meta["inst_comm"]),
-        "verified": res["verified"],
-        "efw_equal_to_meta": res["efw"] == tuple(tuple(int(c) for c in p) for p in meta["efw"]),
-    }
-
+    res, checks, wall, launches = outer_run(device, stem, 1, srs)
     # the outer proof through the verifier's main path on the card
-    params = res["params"]
-    for fn in (scalar_mul_win, fa_tape_eval, jac_segment_sum):
-        fn.launches = 0
+    params, vk, proof, pis = res["params"], res["vk"], res["proof"], res["public_inputs"]
+    reset_verifier_launches()
     batch = {}
     for b in (1, 2):
-        t = {}
-        t1 = time.perf_counter()
-        ok, quads = verify_batch(params, vk, [[pis]] * b, [proof] * b, device=device, aggregate=True, timings=t)
-        torch.cuda.synchronize()
-        t["wall"] = time.perf_counter() - t1
-        batch[f"B={b}"] = t
-        checks[f"verify_batch_b{b}_accepts"] = ok is True and [tuple(map(tuple, q)) for q in quads] == [res["efw"]] * b
-    bad = bytearray(proof)
-    bad[len(proof) - 64 * 5] ^= 1  # an evaluation: the transcript still parses
-    try:
-        ok_bad, _ = verify_batch(params, vk, [[pis]], [bytes(bad)], device=device, aggregate=True)
-        rejected = "check_failed" if ok_bad is False else None
-    except ValueError as e:
-        rejected = f"parse_raised: {e}"
+        checks[f"verify_batch_b{b}_accepts"], batch[f"B={b}"] = verify_on_card(
+            params, vk, [pis] * b, [proof] * b, [res["efw"]] * b, device)
+    rejected = flipped_byte_verdict(params, vk, [pis], [proof], device)
     checks["flipped_byte_rejected"] = rejected is not None
-    torch.cuda.synchronize()
-    launches.update(ec_win=scalar_mul_win.launches, fa_tape=fa_tape_eval.launches,
-                    jac_segment_sum=jac_segment_sum.launches)
-    tape = fa_tape(vk, e_scalar=True)  # K2's program for the outer vk
-    emit({
-        "phase": "outer", "circuit": "aggregation, one inner proof (SingleProofCircuit)", "k": cfg.k_outer,
-        "rows": res["rows"], **checks,
-        "proof_bytes": len(proof), "proof_sha256": hashlib.sha256(proof).hexdigest(),
-        "artifact_sha256": hashlib.sha256(want_proof).hexdigest(), "flipped_byte": rejected,
-        "k2_tape": {"instrs": int(tape.instrs.shape[0]), "temps": tape.n_temps, "shared_bytes": shared_bytes(tape)},
-        "wall_s": wall, "seconds": res["seconds"], "verify_batch_s": batch,
-        "peak_device_mib": torch.cuda.max_memory_allocated(device) / 2**20, "launches": launches,
-    })
-    failed = [name for name, ok in checks.items() if ok is not True]
-    if failed:
-        raise AssertionError(f"outer: {failed} false")
-    for name in ("ntt", "intt", "ew", "quotient_tape", "msm_s5", "ec_win", "fa_tape", "jac_segment_sum"):
-        if launches[name] < 1:
-            raise AssertionError(f"outer: {name} was not launched: {launches}")
+    launches.update(verifier_launches())
+    with open(stem + ".proof", "rb") as f:
+        want_sha = hashlib.sha256(f.read()).hexdigest()
+    outer_emit("outer", "aggregation, one inner proof (SingleProofCircuit)", res, checks, wall, launches, device,
+               artifact_sha256=want_sha, flipped_byte=rejected, verify_batch_s=batch)
+    return launches
+
+
+def phase_outer_n2(device) -> dict:
+    """The aggregation proper: `run_outer` at N = 2, k = 22 (two inner
+    proofs, `AggregationCircuit` with its in-circuit lambda-fold) on the
+    card with its own k = 22 `DeviceSRS`, held to
+    `docs/artifacts/outer_n2_k22.*` as `phase_outer` holds N = 1, and the
+    fold to the host's; then `verify_batch(aggregate=True)` at B = 2 over
+    [this proof, the checked-in `outer_n2_k22b.proof`] (two statements under
+    one vk), and the pair with a byte of this proof flipped.  Returns the
+    launches of each kernel in this phase."""
+    import hashlib
+
+    art = os.path.join(ROOT, "docs", "artifacts")
+    stem, other = os.path.join(art, "outer_n2_k22"), os.path.join(art, "outer_n2_k22b")
+    res, checks, wall, launches = outer_run(device, stem, 2)
+    with open(other + ".meta.json") as f:
+        meta_b = json.load(f)
+    with open(other + ".proof", "rb") as f:
+        proof_b = f.read()
+    pis = [res["public_inputs"], [int(v) for v in meta_b["public_inputs"]]]
+    proofs = [res["proof"], proof_b]
+    efws = [res["efw"], tuple(tuple(int(c) for c in p) for p in meta_b["efw"])]
+    reset_verifier_launches()
+    checks["verify_batch_b2_with_b_accepts"], timings = verify_on_card(res["params"], res["vk"], pis, proofs, efws,
+                                                                       device)
+    rejected = flipped_byte_verdict(res["params"], res["vk"], pis, proofs, device)
+    checks["flipped_byte_rejected"] = rejected is not None
+    launches.update(verifier_launches())
+    with open(stem + ".proof", "rb") as f:
+        want_sha = hashlib.sha256(f.read()).hexdigest()
+    outer_emit("outer_n2", "aggregation of two inner proofs (AggregationCircuit, lambda-fold)", res, checks, wall,
+               launches, device, artifact_sha256=want_sha, flipped_byte=rejected, verify_batch_s={"B=2": timings})
     return launches
 
 
@@ -1716,17 +1810,21 @@ def main() -> int:
     prove_launches = phase_prove(device)
     done("prove")
     outer_launches = phase_outer(device, srs)
-    del srs
+    del srs  # the k = 22 run makes its own DeviceSRS; prove_and_save refuses a k = 21 one
     done("outer")
+    outer_n2_launches = phase_outer_n2(device)
+    done("outer_n2")
     emit({"phase_seconds": seconds, "total_s": sum(seconds.values())})
     for name, rec in recs.items():
         rec["launches"] = prove_launches[name]
     # K7 is on the prover's path; K9 on DeviceSRS(signed=False) in `msm`
     msm_recs["msm_s5"]["launches"] = prove_launches["msm_s5"]
     # each kernel's launches in the `outer` phase: one k = 21 outer keygen,
-    # prove and instance commitment, then verify_batch at B = 1, 2 and 1
+    # prove and instance commitment, then verify_batch at B = 1, 2 and 1;
+    # in `outer_n2` the same at k = 22, then verify_batch at B = 2 twice
     for rec in (k1, k2, *recs.values(), msm_recs["msm_s5"], k8, msm_recs["msm_u4"], js):
         rec["launches_outer"] = outer_launches.get(rec["name"], 0)
+        rec["launches_outer_n2"] = outer_n2_launches.get(rec["name"], 0)
         rec["launches_benchmark"] = benchmark_launches[rec["name"]]
     emit(card)  # once more, beside the numbers: the build's report is long
     emit({"kernels": [k1, k2, *recs.values(), msm_recs["msm_s5"], k8, msm_recs["msm_u4"], js]})

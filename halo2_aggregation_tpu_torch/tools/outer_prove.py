@@ -2,7 +2,7 @@
 outer proof, proved and verified with the quotient and every commitment on
 the card.
 
-    python3 -m halo2_aggregation_tpu_torch.tools.outer_prove [--artifacts-dir DIR] [--tag T]
+    python3 -m halo2_aggregation_tpu_torch.tools.outer_prove [--artifacts-dir DIR] [--tag T] [--expect STEM]
 
 The counterpart of `examples/simple_example.py` with `H2A_PHASE_D=1`, on
 the port's own modules.  `config.H2AConfig.from_env()` gives N
@@ -34,7 +34,11 @@ Everything is seeded, so at N = 1 the proof, vk and quad can be held to
 then runs every commitment through the plain K7 and takes hours.  The
 command prints one JSON line (`result_line`): the host verify's verdict,
 whether the in-circuit quads equal the host's, the stage split in seconds
-and the SHA-256 of the proof.
+and the SHA-256 of the proof; then the card's name and power limit, the peak
+device memory and the process's peak RSS.  `--expect STEM` holds the proof,
+the vk and the meta's public inputs, quad and instance commitment to a
+checked-in stem (`expect_checks`) and exits 1 on any difference; e.g.
+`H2A_NUM_PROOFS=4 ... outer_prove --expect docs/artifacts/outer_n4_k23`.
 """
 
 from __future__ import annotations
@@ -44,6 +48,8 @@ import contextlib
 import hashlib
 import json
 import os
+import resource
+import subprocess
 import sys
 import time
 
@@ -123,22 +129,22 @@ def outer_circuit(cfg, inner: dict):
 def synthesize(cfg, outer, public_inputs, efws):
     """Phase C: the outer circuit's assignment at k_outer; raises unless
     every in-circuit quad (and, for N > 1, the fold) equals the host's.
-    Returns (cs, assignment, rows, the in-circuit quads)."""
+    Returns (cs, assignment, rows, the in-circuit quads, the in-circuit
+    fold (W, RHS); None for N = 1)."""
     from ..models import aggregation_circuit as ac
 
     cs, _, asg, ctx, out = ac.build(outer, cfg.k_outer, public_inputs)
-    quads, W, RHS = ([out], None, None) if cfg.num_proofs == 1 else out
+    quads, fold = ([out], None) if cfg.num_proofs == 1 else (out[0], (out[1].value(), out[2].value()))
     quads = [(q.e.value(), q.f.value(), q.w.value(), q.zw.value()) for q in quads]
     for i, (q, efw) in enumerate(zip(quads, efws)):
         if q != tuple(efw):
             raise AssertionError(f"in-circuit quad {i} != the host verify_proof's")
-    if cfg.num_proofs > 1:
-        if (W.value(), RHS.value()) != ac.fold_quads_host(efws, constrained_fs=cfg.constrained_fs):
-            raise AssertionError("in-circuit fold != the host's")
+    if fold is not None and fold != ac.fold_quads_host(efws, constrained_fs=cfg.constrained_fs):
+        raise AssertionError("in-circuit fold != the host's")
     usable = cs.usable_rows(1 << cfg.k_outer)
     if ctx.offset > usable:
         raise ValueError(f"{ctx.offset} rows do not fit k = {cfg.k_outer} ({usable} usable)")
-    return cs, asg, ctx.offset, quads
+    return cs, asg, ctx.offset, quads, fold
 
 
 #: the checked-in reference artifacts, which nothing here overwrites
@@ -278,7 +284,8 @@ def run_outer(
     params, proof, vk, quad and instance commitment, `verified` (the host
     `verify_proof`), the artifacts' stem (None unless written), and
     `seconds`: the stage split, with keygen's and the prove's `progress`
-    stages as [message, seconds] rows."""
+    stages as [message, seconds] rows.  For N > 1 also the in-circuit fold
+    (W, RHS) as `in_circuit_fold` (None for N = 1)."""
     from ..config import H2AConfig
     from ..device import resolve_device
 
@@ -297,7 +304,7 @@ def run_outer(
     log(f"{cfg.num_proofs} inner proof(s) valid; {len(public_inputs)} outer public inputs")
 
     t0 = time.perf_counter()
-    cs, asg, rows, in_circuit_quads = synthesize(cfg, outer, public_inputs, inner["efws"])
+    cs, asg, rows, in_circuit_quads, fold = synthesize(cfg, outer, public_inputs, inner["efws"])
     seconds["synthesis"] = time.perf_counter() - t0
     log(f"synthesized {rows} rows at k = {cfg.k_outer}; quads equal the host's")
 
@@ -308,7 +315,7 @@ def run_outer(
     return {
         "num_proofs": cfg.num_proofs, "k_outer": cfg.k_outer, "constrained_fs": cfg.constrained_fs,
         "rows": rows, "public_inputs": public_inputs, "inner_quads": inner["efws"],
-        "in_circuit_quads": in_circuit_quads, **res,
+        "in_circuit_quads": in_circuit_quads, "in_circuit_fold": fold, **res,
         "artifact_stem": stem if res["verified"] else None, "seconds": seconds,
     }
 
@@ -324,13 +331,55 @@ def result_line(res: dict) -> dict:
     }
 
 
+def expect_checks(res: dict, stem: str) -> dict:
+    """`run_outer`'s (or `prove_and_save`'s) proof, vk, public inputs, quad
+    and instance commitment against the artifact at `stem`: one boolean
+    each.  Of the meta only those three keys (a level-1 meta may lack
+    `witness_offset`)."""
+    from ..utils.artifacts import load_vk
+
+    with open(f"{stem}.meta.json") as f:
+        meta = json.load(f)
+    with open(f"{stem}.proof", "rb") as f:
+        want_proof = f.read()
+    vk, want_vk = res["vk"], load_vk(stem)
+    return {
+        "pis_equal_to_meta": [int(v) for v in res["public_inputs"]] == [int(v) for v in meta["public_inputs"]],
+        "vk_equal_to_artifact": (vk.hash_scalar() == want_vk.hash_scalar()
+                                 and vk.fixed_commitments == want_vk.fixed_commitments
+                                 and vk.sigma_commitments == want_vk.sigma_commitments),
+        "proof_equal_to_artifact": res["proof"] == want_proof,
+        "inst_comm_equal_to_meta": res["inst_comm"] == tuple(int(c) for c in meta["inst_comm"]),
+        "efw_equal_to_meta": res["efw"] == tuple(tuple(int(c) for c in p) for p in meta["efw"]),
+    }
+
+
+def peak_rss_mib() -> float:
+    """The process's peak resident set (Linux reports KiB)."""
+    return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 1024
+
+
+def card_line() -> str:
+    """`nvidia-smi`'s name and power limit of the card, or "" without it."""
+    try:
+        return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                              capture_output=True, text=True).stdout.strip()
+    except OSError:
+        return ""
+
+
 def main(argv=None) -> int:
+    import torch
+
     from ..config import H2AConfig
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--artifacts-dir", default=os.environ.get("H2A_ARTIFACTS_DIR", ""))
     ap.add_argument("--tag", default=os.environ.get("H2A_ARTIFACT_TAG", ""))
+    ap.add_argument("--expect", default="", help="a stem to hold the proof, vk and meta to; exit 1 on a difference")
     args = ap.parse_args(argv)
+    if args.expect and not os.path.exists(f"{args.expect}.proof"):
+        ap.error(f"--expect {args.expect}: no {args.expect}.proof")
     t0 = time.perf_counter()
     res = run_outer(
         H2AConfig.from_env(), artifacts_dir=args.artifacts_dir or None, tag=args.tag,
@@ -338,7 +387,13 @@ def main(argv=None) -> int:
         progress=lambda m: print(f"  [{time.perf_counter() - t0:8.1f}s] {m}", flush=True),
     )
     print(json.dumps(result_line(res)), flush=True)
-    return 0 if res["verified"] else 1
+    checks = expect_checks(res, args.expect) if args.expect else {}
+    print(json.dumps({
+        "card": card_line(), "expect": args.expect or None, **checks, "wall_s": time.perf_counter() - t0,
+        "peak_device_mib": torch.cuda.max_memory_allocated() / 2**20 if torch.cuda.is_available() else None,
+        "peak_rss_mib": peak_rss_mib(),
+    }), flush=True)
+    return 0 if res["verified"] and all(checks.values()) else 1
 
 
 if __name__ == "__main__":

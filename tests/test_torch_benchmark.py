@@ -426,7 +426,7 @@ def test_run_outer_forwards_the_seed_and_the_window(monkeypatch):
     got = {}
     monkeypatch.setattr(outer_prove, "inner_proofs", lambda cfg, off: {"efws": []})
     monkeypatch.setattr(outer_prove, "outer_circuit", lambda cfg, inner: (None, [1]))
-    monkeypatch.setattr(outer_prove, "synthesize", lambda *a: ("cs", "asg", 10, []))
+    monkeypatch.setattr(outer_prove, "synthesize", lambda *a: ("cs", "asg", 10, [], None))
     monkeypatch.setattr(outer_prove, "prove_and_save",
                         lambda *a, **k: got.update(k) or {"verified": True, "seconds": {}})
     window = object()
