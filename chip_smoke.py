@@ -84,7 +84,10 @@ nonzero before the last line):
      at k = 21 on 4 against their plain versions (bit for bit), each
      transform in `len(pass_plan(k))` launches, intt(ntt(x)) == x, and one
      column's coset evaluations through K4 -> K5 -> K3 against the native
-     host engine; the pass kernels' blocks an SM;
+     host engine; K3 and K4 at k = 22, 23 and 24 (the outer proofs' sizes
+     at N = 2, 4 and 8) on 2 random columns against the host
+     `NativeDomain`, each in `len(pass_plan(k))` launches, and the round
+     trip; the pass kernels' blocks an SM;
   6. quotient: the aggregation circuit's 39 columns at k = 21 (the real
      outer proof's size) through `DeviceQuotient` (feed, finalize, 4
      cosets), K6 against its plain version on the first, last and random
@@ -116,8 +119,12 @@ nonzero before the last line):
      `docs/artifacts/outer_n1_k21.*`, the in-circuit quad equal to the host
      verifier's; the outer proof through `verify_batch(aggregate=True)` at
      B = 1 and 2 (accepted, quads equal) and with a byte flipped
-     (rejected); the stage split, peak device memory and each kernel's
-     launches in the phase (K3-K7, K2, K1 and the segmented sum, each > 0);
+     (rejected); keygen's permutation arrays (`plonk/permutation.py`)
+     against the pinned `Assignment.build_permutation_arrays` on the run's
+     assignment, both timed; the stage split, the permutation stage's
+     seconds, peak device memory, the RSS at each stage and the stage that
+     reached the peak, and each kernel's launches in the phase (K3-K7, K2,
+     K1 and the segmented sum, each > 0);
  10. outer_n2: `run_outer` at N = 2, k = 22 (two inner proofs, the
      `AggregationCircuit` with its in-circuit lambda-fold, 2.67M rows) on
      the card with its own k = 22 `DeviceSRS`: the same checks against
@@ -125,7 +132,7 @@ nonzero before the last line):
      host's; `verify_batch(aggregate=True)` at B = 2 over [this proof, the
      checked-in `outer_n2_k22b.proof`] accepted with both metas' quads, and
      the pair with a byte flipped rejected; the stage split, peak device
-     memory and RSS, and the same kernels launched.
+     memory, the RSS at each stage, and the same kernels launched.
 Then one JSON line with the kernels' numbers (each with its launches on its
 path, its time, its plain version's time, its bound and `library_ms`: null,
 as no PyTorch call computes 256-bit modular arithmetic; the lane-serial
@@ -1070,6 +1077,46 @@ def check_transforms(device, rng, k: int, cols: int) -> dict:
     return {"k": k, "columns": cols, "passes": passes}
 
 
+def check_transforms_host(device, rng, k: int, cols: int = 2) -> dict:
+    """K3 and K4 on `cols` random columns of size 2^k against the host
+    `NativeDomain` (the native engine's NTT), each in `len(pass_plan(k))`
+    launches: K4 gives the bit-reversed coefficients of the columns read as
+    evaluations, K3 the evaluations of the columns read as bit-reversed
+    coefficients, and K3 of K4's output the columns again (the round
+    trip).  The plain versions take minutes at these sizes on the card."""
+    import numpy as np
+    import torch
+
+    from halo2_aggregation_tpu_torch.ops import ntt as nt
+    from halo2_aggregation_tpu_torch.ops.limbs import port_to_u64, u64_to_port
+    from halo2_aggregation_tpu_torch.plonk import engine
+
+    host = random_columns(rng, cols, 1 << k)
+    x = torch.from_numpy(u64_to_port(host).copy()).to(device)
+    tables = nt.NttTables(k, device)
+    passes = len(nt.pass_plan(k))
+    before = (nt.ntt_batched.launches, nt.intt_batched.launches, nt.ew_mul_scalar.launches)
+    work = x.clone()
+    inv, intt_ms = host_ms(lambda: nt.intt_batched(work, tables.inv, tables.n_inv))
+    work = x.clone()
+    fwd, ntt_ms = host_ms(lambda: nt.ntt_batched(work, tables.fwd))
+    after = (nt.ntt_batched.launches, nt.intt_batched.launches, nt.ew_mul_scalar.launches)
+    if [b - a for a, b in zip(before, after)] != [passes, passes, 0]:
+        raise AssertionError(f"k = {k}: launches {before} -> {after} for a plan of {passes} passes")
+    if not torch.equal(nt.ntt_batched(inv.clone(), tables.fwd), x):
+        raise AssertionError(f"k = {k}: ntt(intt(x)) != x")
+    rev = nt.bit_reverse_indices(k)
+    dom = engine.NativeDomain(k)
+    t0 = time.perf_counter()
+    for c in range(cols):
+        if not np.array_equal(port_to_u64(inv[c]), dom.intt(host[c])[rev]):
+            raise AssertionError(f"K4 intt, k = {k}, column {c} != NativeDomain.intt")
+        if not np.array_equal(port_to_u64(fwd[c]), dom.ntt(host[c][rev])):
+            raise AssertionError(f"K3 ntt, k = {k}, column {c} != NativeDomain.ntt")
+    return {"k": k, "columns": cols, "pass_plan": nt.pass_plan(k), "intt_ms": intt_ms, "ntt_ms": ntt_ms,
+            "host_s": time.perf_counter() - t0}
+
+
 def phase_ntt(device, k: int = 21, cols: int = 4):
     """The device's product alone, K3 and K4 at small k, then K4, K5 and K3
     against their plain versions on `cols` random columns of size 2^k;
@@ -1092,6 +1139,8 @@ def phase_ntt(device, k: int = 21, cols: int = 4):
     errs = {}
     product = check_product(device, rng)
     small = [check_transforms(device, rng, kk, 2) for kk in (1, 5, 9, 13, 16)]
+    # the outer proofs' sizes (N = 2, 4, 8): the passes of pass_plan(22 .. 24)
+    large = [check_transforms_host(device, rng, kk) for kk in (22, 23, 24)]
     series_ks = check_series(device, shift)
     passes = len(nt.pass_plan(k))
     reset_ntt_launches()
@@ -1145,7 +1194,7 @@ def phase_ntt(device, k: int = 21, cols: int = 4):
     emit({
         "phase": "ntt", "k": k, "columns": cols, "tolerance": "exact: equal bits",
         "max_abs_err": errs, "roundtrip": True, "host_coset_column_equal": True,
-        "fe_mul_equal_to_plain": product, "small_k_equal_to_plain": small,
+        "fe_mul_equal_to_plain": product, "small_k_equal_to_plain": small, "large_k_equal_to_host": large,
         "pass_plan": nt.pass_plan(k), "launches_a_transform": passes,
         "series_equal_to_plain": series_ks, "series_launches_a_call": 2,
         # the widest pass: shared memory a block, blocks an SM
@@ -1612,38 +1661,6 @@ def outer_run(device, stem: str, num_proofs: int, srs=None) -> tuple:
     return res, checks, wall, launches
 
 
-def verify_on_card(params, vk, pis: list, proofs: list, efws: list, device) -> tuple:
-    """`verify_batch(aggregate=True)` on the card over `proofs` (each with
-    its public inputs).  Returns (accepted with quads equal to `efws`, the
-    timings)."""
-    import torch
-
-    from halo2_aggregation_tpu_torch.plonk.verifier_device import verify_batch
-
-    t = {}
-    t1 = time.perf_counter()
-    ok, quads = verify_batch(params, vk, [[p] for p in pis], proofs, device=device, aggregate=True, timings=t)
-    torch.cuda.synchronize()
-    t["wall"] = time.perf_counter() - t1
-    return ok is True and [tuple(map(tuple, q)) for q in quads] == list(efws), t
-
-
-def flipped_byte_verdict(params, vk, pis: list, proofs: list, device):
-    """The batch with one evaluation's byte of the first proof flipped (the
-    transcript still parses) through `verify_batch(aggregate=True)` on the
-    card: how it was rejected, or None when it was accepted."""
-    from halo2_aggregation_tpu_torch.plonk.verifier_device import verify_batch
-
-    bad = bytearray(proofs[0])
-    bad[len(bad) - 64 * 5] ^= 1
-    try:
-        ok_bad, _ = verify_batch(params, vk, [[p] for p in pis], [bytes(bad), *proofs[1:]], device=device,
-                                 aggregate=True)
-        return "check_failed" if ok_bad is False else None
-    except ValueError as e:
-        return f"parse_raised: {e}"
-
-
 def reset_verifier_launches() -> None:
     from halo2_aggregation_tpu_torch.ops.ec_kernels import jac_segment_sum, scalar_mul_win
     from halo2_aggregation_tpu_torch.plonk.fa_fused import fa_tape_eval
@@ -1669,16 +1686,18 @@ def outer_emit(name: str, circuit: str, res: dict, checks: dict, wall: float, la
     import torch
 
     from halo2_aggregation_tpu_torch.plonk.fa_fused import fa_tape, shared_bytes
-    from halo2_aggregation_tpu_torch.tools.outer_prove import peak_rss_mib
+    from halo2_aggregation_tpu_torch.tools.outer_prove import peak_rss_mib, peak_rss_stage
 
     proof = res["proof"]
+    permutation_s = sum(secs for msg, secs in res["seconds"]["keygen_stages"] if msg == "permutation arrays")
     tape = fa_tape(res["vk"], e_scalar=True)  # K2's program for the outer vk
     emit({
         "phase": name, "circuit": circuit, "k": res["k_outer"], "rows": res["rows"], **checks, **extra,
         "proof_bytes": len(proof), "proof_sha256": hashlib.sha256(proof).hexdigest(),
         "k2_tape": {"instrs": int(tape.instrs.shape[0]), "temps": tape.n_temps, "shared_bytes": shared_bytes(tape)},
-        "wall_s": wall, "seconds": res["seconds"],
+        "wall_s": wall, "keygen_permutation_arrays_s": permutation_s, "seconds": res["seconds"],
         "peak_device_mib": torch.cuda.max_memory_allocated(device) / 2**20, "peak_rss_mib": peak_rss_mib(),
+        "rss_mib": res["rss_mib"], "peak_rss_stage": peak_rss_stage(res["rss_mib"]),
         "launches": launches,
     })
     failed = [n for n, ok in checks.items() if ok is not True]
@@ -1694,19 +1713,35 @@ def phase_outer(device, srs=None) -> dict:
     k = 21 on the card (one inner proof, the outer circuit, keygen_device,
     create_proof_device, the host verify_proof), held to
     `docs/artifacts/outer_n1_k21.*`; then the outer proof through
-    `verify_batch(aggregate=True)` at B = 1 and 2, and with a byte flipped.
+    `verify_batch(aggregate=True)` at B = 1 and 2, and with a byte flipped;
+    and keygen's permutation arrays (`plonk/permutation.py`) against the
+    pinned `Assignment.build_permutation_arrays` on the run's assignment.
     `srs` is the `msm` phase's DeviceSRS of the same SRS.  Returns the
     launches of each kernel in this phase."""
     import hashlib
 
+    import numpy as np
+
+    from halo2_aggregation_tpu_torch.plonk.permutation import permutation_arrays
+    from halo2_aggregation_tpu_torch.tools.outer_prove import flipped_byte_verdict, verify_on_device
+
     stem = os.path.join(ROOT, "docs", "artifacts", "outer_n1_k21")
     res, checks, wall, launches = outer_run(device, stem, 1, srs)
+    asg = res.pop("assignment")
+    t0 = time.perf_counter()
+    got = permutation_arrays(asg)
+    t1 = time.perf_counter()
+    want = asg.build_permutation_arrays()
+    permutation = {"copies": len(asg.copies), "seconds": t1 - t0, "pinned_seconds": time.perf_counter() - t1}
+    checks["permutation_arrays_equal_to_pinned"] = all(
+        g.dtype == w.dtype and np.array_equal(g, w) for g, w in zip(got, want))
+    del asg, got, want
     # the outer proof through the verifier's main path on the card
     params, vk, proof, pis = res["params"], res["vk"], res["proof"], res["public_inputs"]
     reset_verifier_launches()
     batch = {}
     for b in (1, 2):
-        checks[f"verify_batch_b{b}_accepts"], batch[f"B={b}"] = verify_on_card(
+        checks[f"verify_batch_b{b}_accepts"], batch[f"B={b}"] = verify_on_device(
             params, vk, [pis] * b, [proof] * b, [res["efw"]] * b, device)
     rejected = flipped_byte_verdict(params, vk, [pis], [proof], device)
     checks["flipped_byte_rejected"] = rejected is not None
@@ -1714,7 +1749,7 @@ def phase_outer(device, srs=None) -> dict:
     with open(stem + ".proof", "rb") as f:
         want_sha = hashlib.sha256(f.read()).hexdigest()
     outer_emit("outer", "aggregation, one inner proof (SingleProofCircuit)", res, checks, wall, launches, device,
-               artifact_sha256=want_sha, flipped_byte=rejected, verify_batch_s=batch)
+               artifact_sha256=want_sha, flipped_byte=rejected, verify_batch_s=batch, permutation=permutation)
     return launches
 
 
@@ -1729,6 +1764,8 @@ def phase_outer_n2(device) -> dict:
     launches of each kernel in this phase."""
     import hashlib
 
+    from halo2_aggregation_tpu_torch.tools.outer_prove import flipped_byte_verdict, verify_on_device
+
     art = os.path.join(ROOT, "docs", "artifacts")
     stem, other = os.path.join(art, "outer_n2_k22"), os.path.join(art, "outer_n2_k22b")
     res, checks, wall, launches = outer_run(device, stem, 2)
@@ -1740,8 +1777,8 @@ def phase_outer_n2(device) -> dict:
     proofs = [res["proof"], proof_b]
     efws = [res["efw"], tuple(tuple(int(c) for c in p) for p in meta_b["efw"])]
     reset_verifier_launches()
-    checks["verify_batch_b2_with_b_accepts"], timings = verify_on_card(res["params"], res["vk"], pis, proofs, efws,
-                                                                       device)
+    checks["verify_batch_b2_with_b_accepts"], timings = verify_on_device(res["params"], res["vk"], pis, proofs, efws,
+                                                                         device)
     rejected = flipped_byte_verdict(res["params"], res["vk"], pis, proofs, device)
     checks["flipped_byte_rejected"] = rejected is not None
     launches.update(verifier_launches())

@@ -35,6 +35,7 @@ from ..device import resolve_device
 from ..fields import FR_DELTA, FR_GENERATOR, R, fr_omega
 from ..utils import native
 from ..utils.transcript import Blake2bWrite
+from ..utils.u64 import int_to_u64
 from .circuit import Any, Assignment
 from .columns import advice_column, col_from_ints_fast, rand_fr_column
 from .engine import (
@@ -54,6 +55,20 @@ from .kzg import DeviceSRS, Params
 from .protocol import compress_expressions, query_schedule, rotation_sets
 from .prover_native import _as_plain_u64, _permute_lookup_u64
 from .quotient_device import DeviceQuotient
+
+
+class _OnUse:
+    """A read-only sequence whose item i is `make(i)`, made on first read
+    and kept while the sequence lives."""
+
+    def __init__(self, make):
+        self._make = make
+        self._made = {}
+
+    def __getitem__(self, i):
+        if i not in self._made:
+            self._made[i] = self._make(i)
+        return self._made[i]
 
 
 def create_proof_device(
@@ -102,40 +117,57 @@ def create_proof_device(
     # moment its values are final (fixed/sigma immediately, advice after the
     # advice commits, lookup polys after their stage, ...).  Columns go in
     # EVALUATION form and the device runs the INTT: the host keeps only the
-    # Montgomery VALUE columns (`evm`), the step-7 evaluations run through
-    # engine.Barycentric and the multiopen witnesses are built in the
-    # Lagrange basis.  `get_coeffs` computes coefficients lazily for the
-    # case of an evaluation point landing in the domain.  Feeds never touch
-    # the transcript or the rng, so proof bytes are unchanged.
+    # Montgomery VALUE columns the later stages read (`evm`), the step-7
+    # evaluations run through engine.Barycentric and the multiopen witnesses
+    # are built in the Lagrange basis.  `get_coeffs` computes coefficients
+    # lazily for the case of an evaluation point landing in the domain.
+    # Feeds never touch the transcript or the rng, so proof bytes are
+    # unchanged.
+    #
+    # Host memory: each (n, 4) column is 512 MiB at k = 24, so a column is
+    # held in one form only and dropped after its last reader.  The fixed
+    # and sigma columns stay in pk's plain form (the caller holds pk) and
+    # are converted on use (`value_m`); the plain form of every other
+    # column goes once committed and fed; the pre-blind advice after the
+    # permutation products, the lookups' compressed columns after their
+    # grand products, h's extended column once its coefficients are cut
+    # into pieces.
     dq = DeviceQuotient(cs, k, device)
     dq_keys = frozenset(dq.key_order)
 
     evm: dict = {}  # key -> (n, 4) u64 mont VALUE column
+    pk_plain: dict = {}  # fixed and sigma keys -> pk's plain column
     _coeffs: dict = {}  # key -> (n, 4) u64 mont coefficient column (lazy)
 
-    def register(key, plain_col) -> None:
+    def register(key, plain_col, keep: bool = True) -> None:
+        """Feed `key`'s Montgomery column to the quotient engine, and hold
+        it in `evm` for the later stages when `keep`."""
         m = to_mont(plain_col)
-        evm[key] = m
+        if keep:
+            evm[key] = m
         if key in dq_keys:
             dq.feed_evals(key, m)
 
+    def value_m(key) -> np.ndarray:
+        """`key`'s Montgomery VALUE column: held, or converted from pk's."""
+        return evm[key] if key in evm else to_mont(pk_plain[key])
+
     def get_coeffs(key) -> np.ndarray:
         if key not in _coeffs:
-            _coeffs[key] = dom.intt(evm[key])
+            _coeffs[key] = dom.intt(value_m(key))
         return _coeffs[key]
 
     # fixed/sigma/selector columns are final from keygen
-    fixed_plain = [_as_plain_u64(c) for c in pk.fixed_columns]
-    sigma_plain = [_as_plain_u64(c) for c in pk.sigma_columns]
-    for i, c in enumerate(fixed_plain):
-        register(("fixed", i), c)
-    for i, c in enumerate(sigma_plain):
-        register(("sigma", i), c)
+    for name, cols in (("fixed", pk.fixed_columns), ("sigma", pk.sigma_columns)):
+        for i, c in enumerate(cols):
+            pk_plain[name, i] = _as_plain_u64(c)
+            register((name, i), pk_plain[name, i], keep=False)
+    num_sigma = len(pk.sigma_columns)
 
     def one_hot(rows, key):
         col = np.zeros((n, 4), np.uint64)
         col[list(rows), 0] = 1
-        register(key, col)
+        register(key, col, keep=False)  # read by the quotient alone
 
     one_hot([0], ("l0", 0))
     one_hot([usable], ("llast", 0))
@@ -144,31 +176,30 @@ def create_proof_device(
 
     # --- 0. vk hash + instance commitments (verifier.rs:339-363) -----------
     t.common_scalar(pk.vk.hash_scalar())
-    inst_plain = []
-    for ci in range(cs.num_instance_columns):
+
+    def commit_instance(ci):
         col = col_from_ints_fast(list(instances[ci]))
         if col.shape[0] < n:
             col = np.vstack([col, np.zeros((n - col.shape[0], 4), np.uint64)])
-        inst_plain.append(col)
-    inst_comms = [commit(c) for c in inst_plain]
-    for c in inst_comms:
+        register(("instance", ci), col)
+        return commit(col)
+
+    for c in [commit_instance(ci) for ci in range(cs.num_instance_columns)]:
         t.common_point(c)
-    for i, c in enumerate(inst_plain):
-        register(("instance", i), c)
 
     # --- 1. advice commitments (verifier.rs:365-376) ------------------------
     # raw (pre-blind) advice is what lookup compression and the permutation
-    # grand products consume, matching prover.py's use of `assignment`
-    adv_raw_plain = []
-    advice_plain = []
-    for ci in range(cs.num_advice_columns):
-        raw = advice_column(assignment.advice[ci])
-        adv_raw_plain.append(raw)
-        col = raw.copy()
+    # grand products consume, matching prover.py's use of `assignment`: it
+    # is kept in Montgomery form, then the column is blinded in place
+    def commit_advice(ci):
+        col = advice_column(assignment.advice[ci])
+        raw_m = to_mont(col)
         col[usable:] = rand_fr_column(rng, n - usable)
-        advice_plain.append(col)
         t.write_point(commit(col))
         register(("advice", ci), col)
+        return raw_m
+
+    adv_raw_m = [commit_advice(ci) for ci in range(cs.num_advice_columns)]
     log("advice committed")
 
     theta = t.squeeze_challenge()
@@ -176,23 +207,23 @@ def create_proof_device(
 
     # raw mont leaves per query (Lagrange domain) for lookup compression
     # (fixed/instance mont values are exactly the registered columns;
-    # advice differs — compression reads the PRE-blind values)
-    adv_raw_m = [to_mont(c) for c in adv_raw_plain]
-    fix_raw_m = [evm[("fixed", i)] for i in range(len(fixed_plain))]
-    inst_raw_m = [evm[("instance", i)] for i in range(len(inst_plain))]
+    # advice differs — compression reads the PRE-blind values); a fixed
+    # leaf is converted when an expression first reads it
+    inst_raw_m = [evm[("instance", i)] for i in range(cs.num_instance_columns)]
     adv_leaf_m = [
         roll(adv_raw_m[c.index], rot.value) for c, rot in cs.advice_queries
     ]
-    fix_leaf_m = [
-        roll(fix_raw_m[c.index], rot.value) for c, rot in cs.fixed_queries
-    ]
+    fix_leaf_m = _OnUse(
+        lambda qi: roll(value_m(("fixed", cs.fixed_queries[qi][0].index)), cs.fixed_queries[qi][1].value)
+    )
     inst_leaf_m = [
         roll(inst_raw_m[c.index], rot.value) for c, rot in cs.instance_queries
     ]
 
     # --- 2. lookups: permuted commitments (verifier.rs:380-387) -------------
-    lookups = []
-    for arg in cs.lookups:
+    def commit_permuted(li, arg):
+        """Commit and feed one lookup's A' and S'; returns its compressed
+        input and table columns, which its grand product reads."""
         a_comp_m = compress_expressions(
             ops, arg.input_expressions, theta_m, adv_leaf_m, fix_leaf_m, inst_leaf_m
         )
@@ -207,19 +238,14 @@ def create_proof_device(
         blinds_s = rand_fr_column(rng, n - usable)
         ap_plain = np.vstack([ap_u, blinds_a])
         sp_plain = np.vstack([sp_u, blinds_s])
-        lookups.append(
-            {
-                "a_comp_m": a_comp_m,
-                "s_comp_m": s_comp_m,
-                "a_prime_plain": ap_plain,
-                "s_prime_plain": sp_plain,
-            }
-        )
         t.write_point(commit(ap_plain))
         t.write_point(commit(sp_plain))
-        li = len(lookups) - 1
         register(("lookup_a", li), ap_plain)
         register(("lookup_s", li), sp_plain)
+        return [a_comp_m, s_comp_m]
+
+    compressed = [commit_permuted(li, arg) for li, arg in enumerate(cs.lookups)]
+    del fix_leaf_m
     log("lookups permuted")
 
     beta = t.squeeze_challenge()
@@ -232,7 +258,7 @@ def create_proof_device(
         if col.kind == Any.ADVICE:
             return adv_raw_m[col.index]
         if col.kind == Any.FIXED:
-            return fix_raw_m[col.index]
+            return value_m(("fixed", col.index))
         return inst_raw_m[col.index]
 
     # --- 3. permutation grand products (verifier.rs:401-409) ----------------
@@ -242,11 +268,11 @@ def create_proof_device(
     for _ in range(len(perm_cols) - 1):
         deltas.append(deltas[-1] * FR_DELTA % R)
     omega_pows_m = pow_series(mont_scalar(omega), n)
-    perm_z_plain = []
-    prev_end = 1
-    for ci in range(num_chunks):
+
+    def commit_perm_z(ci, prev_end):
+        """Commit and feed chunk `ci`'s grand product; returns its last
+        value, the next chunk's start."""
         cols = perm_cols[ci * chunk_len : (ci + 1) * chunk_len]
-        sigs = sigma_plain[ci * chunk_len : (ci + 1) * chunk_len]
         num_m = None
         den_m = None
         for t_i, col in enumerate(cols):
@@ -254,45 +280,55 @@ def create_proof_device(
             kglob = ci * chunk_len + t_i
             bd = mont_scalar(beta * deltas[kglob] % R)
             term_n = ops.add(ops.add(ops.mul(omega_pows_m, bd), v_m), gamma_m)
-            sig_m = to_mont(sigs[t_i])
+            sig_m = value_m(("sigma", kglob))
             term_d = ops.add(ops.add(ops.mul(sig_m, beta_m), v_m), gamma_m)
             num_m = term_n if num_m is None else ops.mul(num_m, term_n)
             den_m = term_d if den_m is None else ops.mul(den_m, term_d)
         z_m = native.fr_grand_product(
             num_m[:usable], den_m[:usable], mont_scalar(prev_end).reshape(-1)
         )
-        prev_end = scalar_to_int(z_m[usable : usable + 1])
         zcol = from_mont(z_m)  # rows 0..usable
         zcol = np.vstack([zcol, rand_fr_column(rng, n - usable - 1)])
-        perm_z_plain.append(zcol)
         t.write_point(commit(zcol))
-    for ci, c in enumerate(perm_z_plain):
-        register(("perm_z", ci), c)
+        register(("perm_z", ci), zcol)
+        return scalar_to_int(z_m[usable : usable + 1])
+
+    prev_end = 1
+    for ci in range(num_chunks):
+        prev_end = commit_perm_z(ci, prev_end)
+    # the last readers of the pre-blind advice and of the domain's powers
+    del adv_raw_m, adv_leaf_m, omega_pows_m
     log("permutation products")
 
     # --- 4. lookup grand products (verifier.rs:411-417) ---------------------
-    for lk in lookups:
+    def commit_lookup_z(li):
+        a_comp_m, s_comp_m = compressed[li]
+        compressed[li] = None  # this is their last reader
         num_m = ops.mul(
-            ops.add(lk["a_comp_m"], beta_m), ops.add(lk["s_comp_m"], gamma_m)
+            ops.add(a_comp_m, beta_m), ops.add(s_comp_m, gamma_m)
         )
-        ap_m = to_mont(lk["a_prime_plain"])
-        sp_m = to_mont(lk["s_prime_plain"])
+        del a_comp_m, s_comp_m
+        ap_m = evm[("lookup_a", li)]
+        sp_m = evm[("lookup_s", li)]
         den_m = ops.mul(ops.add(ap_m, beta_m), ops.add(sp_m, gamma_m))
         z_m = native.fr_grand_product(
             num_m[:usable], den_m[:usable], one_m.reshape(-1)
         )
+        del num_m, den_m
         zcol = from_mont(z_m)
         zcol = np.vstack([zcol, rand_fr_column(rng, n - usable - 1)])
-        lk["z_plain"] = zcol
         t.write_point(commit(zcol))
-    for li, lk in enumerate(lookups):
-        register(("lookup_z", li), lk["z_plain"])
+        register(("lookup_z", li), zcol)
+
+    for li in range(len(cs.lookups)):
+        commit_lookup_z(li)
     log("lookup products")
 
     # --- 5. vanishing random poly (verifier.rs:419-421) ---------------------
     r_plain = rand_fr_column(rng, n)
     t.write_point(commit(r_plain))
     register(("vanishing_r", 0), r_plain)
+    del r_plain
     log("vanishing random committed")
 
     y = t.squeeze_challenge()
@@ -314,8 +350,12 @@ def create_proof_device(
         log(f"quotient coset {cj + 1}/{step} (device)")
 
     _t0 = time.time()
-    ext_dom = NativeDomain(ext_k)
-    h_coeffs_m = ext_dom.intt(h_ext_m)
+    # NativeDomain(ext_k).intt in place: the extended column becomes h's
+    # coefficients without a second copy of it
+    h_coeffs_m = h_ext_m
+    del h_ext_m
+    native.fr_ntt_inplace(h_coeffs_m, ext_k, int_to_u64(pow(omega_ext, -1, R)))
+    native.fr_vec_scale_inplace(h_coeffs_m, mont_scalar(pow(ext_n, -1, R)).reshape(-1))
     native.fr_scale_pows_inplace(
         h_coeffs_m, mont_scalar(pow(g, -1, R)).reshape(-1)
     )
@@ -325,15 +365,18 @@ def create_proof_device(
         h_coeffs_m = np.vstack(
             [h_coeffs_m, np.zeros((qpd * n - h_coeffs_m.shape[0], 4), np.uint64)]
         )
-    h_pieces_m = [h_coeffs_m[i * n : (i + 1) * n] for i in range(qpd)]
-    h_piece_ev = []  # mont VALUE columns, kept for the eval-form fold
-    for piece in h_pieces_m:
+
+    def commit_piece(i):
         _t0 = time.time()
-        ev = dom.ntt(piece)
-        h_piece_ev.append(ev)
+        ev = dom.ntt(h_coeffs_m[i * n : (i + 1) * n])
         _t1 = time.time()
         t.write_point(commit(from_mont(ev)))
         log(f"  h piece ntt {_t1 - _t0:.1f}s commit {time.time() - _t1:.1f}s")
+        return ev
+
+    # mont VALUE columns, kept for the eval-form fold; the coefficients go
+    h_piece_ev = [commit_piece(i) for i in range(qpd)]
+    del h_coeffs_m
     log("quotient committed")
 
     x = t.squeeze_challenge()
@@ -362,11 +405,11 @@ def create_proof_device(
         bary = None
 
     def poly_of(key):
-        return evm[key] if bary is not None else get_coeffs(key)
+        return value_m(key) if bary is not None else get_coeffs(key)
 
     def at_rot(key, rot) -> int:
         if bary is not None:
-            return bary.eval(evm[key], z_of(rot))
+            return bary.eval(value_m(key), z_of(rot))
         return eval_at(get_coeffs(key), z_of(rot))
 
     inst_evals = [
@@ -390,7 +433,7 @@ def create_proof_device(
     r_eval = at_rot(("vanishing_r", 0), 0)
     t.write_scalar(r_eval)
     sigma_evals = [
-        at_rot(("sigma", i), 0) for i in range(len(sigma_plain))
+        at_rot(("sigma", i), 0) for i in range(num_sigma)
     ]
     for e in sigma_evals:
         t.write_scalar(e)
@@ -426,9 +469,11 @@ def create_proof_device(
     # --- 8. multiopen witnesses (multiopen.rs:271-509 verifies these) -------
     # The folded h is assembled in whatever basis step 8 runs in: VALUE
     # columns (h_piece_ev) on the barycentric path, coefficients on the
-    # fallback — the fold is the same linear combination either way.
+    # fallback (each piece's coefficients again from its values: the
+    # piece has degree < n) — the fold is the same linear combination
+    # either way.
     xn = pow(x, n, R)
-    h_src = h_piece_ev if bary is not None else h_pieces_m
+    h_src = h_piece_ev if bary is not None else [dom.intt(ev) for ev in h_piece_ev]
     h_folded = h_src[-1].copy()
     for piece in reversed(h_src[:-1]):
         native.fr_fold_inplace(h_folded, piece, mont_scalar(xn).reshape(-1))
@@ -436,52 +481,57 @@ def create_proof_device(
         bary.eval(h_folded, x) if bary is not None else eval_at(h_folded, x)
     )
 
+    # query -> (the key of its column, None for the folded h; its eval):
+    # a column is converted or read when its rotation set folds it
     polys = {}
     for q in sched:
         if q.kind == "instance":
             col, rot = cs.instance_queries[q.index]
-            polys[q] = (poly_of(("instance", col.index)), inst_evals[q.index])
+            polys[q] = (("instance", col.index), inst_evals[q.index])
         elif q.kind == "advice":
             col, rot = cs.advice_queries[q.index]
-            polys[q] = (poly_of(("advice", col.index)), adv_evals[q.index])
+            polys[q] = (("advice", col.index), adv_evals[q.index])
         elif q.kind == "fixed":
             col, rot = cs.fixed_queries[q.index]
-            polys[q] = (poly_of(("fixed", col.index)), fix_evals[q.index])
+            polys[q] = (("fixed", col.index), fix_evals[q.index])
         elif q.kind == "perm_z":
             polys[q] = (
-                poly_of(("perm_z", q.index)),
+                ("perm_z", q.index),
                 perm_ev[q.index][0] if q.rotation == 0 else perm_ev[q.index][1],
             )
         elif q.kind == "perm_z_last":
-            polys[q] = (poly_of(("perm_z", q.index)), perm_ev[q.index][2])
+            polys[q] = (("perm_z", q.index), perm_ev[q.index][2])
         elif q.kind == "lookup_z":
             polys[q] = (
-                poly_of(("lookup_z", q.index)),
+                ("lookup_z", q.index),
                 lookup_ev[q.index][0] if q.rotation == 0 else lookup_ev[q.index][1],
             )
         elif q.kind == "lookup_a":
             polys[q] = (
-                poly_of(("lookup_a", q.index)),
+                ("lookup_a", q.index),
                 lookup_ev[q.index][2] if q.rotation == 0 else lookup_ev[q.index][3],
             )
         elif q.kind == "lookup_s":
-            polys[q] = (poly_of(("lookup_s", q.index)), lookup_ev[q.index][4])
+            polys[q] = (("lookup_s", q.index), lookup_ev[q.index][4])
         elif q.kind == "sigma":
-            polys[q] = (poly_of(("sigma", q.index)), sigma_evals[q.index])
+            polys[q] = (("sigma", q.index), sigma_evals[q.index])
         elif q.kind == "vanishing_h":
-            polys[q] = (h_folded, h_eval)
+            polys[q] = (None, h_eval)
         elif q.kind == "vanishing_r":
-            polys[q] = (poly_of(("vanishing_r", 0)), r_eval)
+            polys[q] = (("vanishing_r", 0), r_eval)
         else:
             raise KeyError(q.kind)
 
+    def poly(key):
+        return h_folded if key is None else poly_of(key)
+
     for rot, qs in rotation_sets(sched):
         z_pt = z_of(rot)
-        fc = polys[qs[0]][0].copy()
-        fe = polys[qs[0]][1]
+        key, fe = polys[qs[0]]
+        fc = poly(key).copy()
         for q in qs[1:]:
-            c, e = polys[q]
-            native.fr_fold_inplace(fc, c, v_m.reshape(-1))
+            key, e = polys[q]
+            native.fr_fold_inplace(fc, poly(key), v_m.reshape(-1))
             fe = (fe * v + e) % R
         if bary is not None:
             # eval-form witness: W_i = (fc_i - fe) / (x_i - z), then

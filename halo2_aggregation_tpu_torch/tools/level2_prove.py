@@ -13,8 +13,9 @@ circuit once, and hands it to the outer prover's `prove_and_save`:
 through one `DeviceSRS`, then the host verify), written under `--out`.  Prints one JSON line: the proof, vk, quad, instance
 commitment and public inputs against `docs/artifacts/level2_n2_k23.*`, the
 SHA-256 of both proofs, the card's name and power limit, each progress
-message with its seconds since the start, the peak device memory and the
-process's peak RSS.  Exits 1 unless every comparison holds.  `--out` in the
+message with its seconds since the start and the process's RSS and peak RSS
+at it, the message during which the peak was reached, the peak device
+memory and the host's MemTotal.  Exits 1 unless every comparison holds.  `--out` in the
 checked-in `docs/artifacts` is refused before any work.
 """
 
@@ -27,7 +28,7 @@ import os
 import sys
 import time
 
-from .outer_prove import card_line, expect_checks, peak_rss_mib, writable_stem
+from .outer_prove import card_line, expect_checks, mem_total_mib, peak_rss_mib, peak_rss_stage, rss_mib, writable_stem
 
 ART = os.path.normpath(os.path.join(os.path.dirname(os.path.abspath(__file__)), "..", "..", "docs", "artifacts"))
 K = 23
@@ -55,10 +56,11 @@ def main(argv=None) -> int:
     card = card_line()
     print(card, flush=True)
     t0 = time.perf_counter()
-    rows = []
+    rows, rss = [], []
 
     def log(msg):
         rows.append([msg, time.perf_counter() - t0])
+        rss.append([msg, *rss_mib()])
         print(f"[{time.perf_counter() - t0:8.1f}s] {msg}", flush=True)
 
     os.makedirs(args.out, exist_ok=True)
@@ -77,7 +79,8 @@ def main(argv=None) -> int:
         "proof_sha256": hashlib.sha256(proof).hexdigest(), "artifact_sha256": want_sha,
         "wall_s": wall, "progress": rows,
         "peak_device_mib": torch.cuda.max_memory_allocated() / 2**20 if card_run else None,
-        "peak_rss_mib": peak_rss_mib(),
+        "peak_rss_mib": peak_rss_mib(), "rss_mib": rss, "peak_rss_stage": peak_rss_stage(rss),
+        "host_mem_total_mib": mem_total_mib(),
     }), flush=True)
     return 0 if all(checks.values()) else 1
 

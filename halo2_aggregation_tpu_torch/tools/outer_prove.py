@@ -39,6 +39,18 @@ device memory and the process's peak RSS.  `--expect STEM` holds the proof,
 the vk and the meta's public inputs, quad and instance commitment to a
 checked-in stem (`expect_checks`) and exits 1 on any difference; e.g.
 `H2A_NUM_PROOFS=4 ... outer_prove --expect docs/artifacts/outer_n4_k23`.
+Every run is also held to what needs no artifact (`run_checks`): the
+inner proofs verified, the rows within the vk's usable rows, the
+in-circuit quads and fold equal to the host's, the outer proof accepted by
+the host `verify_proof` and by `verify_batch` on the card at B = 1 and
+refused with a byte flipped, and the public inputs' SHA-256 where
+`PIS_SHA256` pins it (N = 8 at k = 24, which has no artifact):
+
+    H2A_PARAMS_CACHE=build/h2a-params H2A_NUM_PROOFS=8 python3 -m halo2_aggregation_tpu_torch.tools.outer_prove
+
+The JSON line also gives the RSS and peak RSS after each stage, the
+stage that reached the peak and the host's MemTotal; the second line each
+kernel's launches.
 """
 
 from __future__ import annotations
@@ -58,18 +70,51 @@ import time
 WITNESSES = [(2, 3), (4, 5), (6, 11), (12, 13), (1, 255), (3, 9), (8, 21), (17, 2)]
 
 
+def peak_rss_mib() -> float:
+    """The process's peak resident set (Linux reports KiB)."""
+    return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 1024
+
+
+def rss_mib() -> list:
+    """[resident set now, peak so far] of the process in MiB: the resident
+    pages of /proc/self/statm and `ru_maxrss`."""
+    with open("/proc/self/statm") as f:
+        pages = int(f.read().split()[1])
+    now = pages * os.sysconf("SC_PAGE_SIZE") / 2**20
+    return [now, max(now, peak_rss_mib())]  # ru_maxrss lags the pages a little
+
+
+def mem_total_mib() -> float:
+    """The host's memory: MemTotal of /proc/meminfo (in KiB there)."""
+    with open("/proc/meminfo") as f:
+        for line in f:
+            if line.startswith("MemTotal:"):
+                return int(line.split()[1]) / 1024
+    raise ValueError("no MemTotal in /proc/meminfo")
+
+
+def peak_rss_stage(rows: list) -> str:
+    """The stage of [stage, RSS, peak] rows (in run order) during which the
+    process reached its peak: the first row whose peak is the last row's
+    (None without rows)."""
+    return next((stage for stage, _, peak in rows if peak >= rows[-1][2]), None)
+
+
 class Stages:
     """[message, seconds since the previous message] for each `progress`
-    call, forwarded to `echo` when given."""
+    call in `rows`, and [message, RSS MiB, peak RSS MiB] (`rss_mib`) at
+    that call in `memory`; forwarded to `echo` when given."""
 
     def __init__(self, echo=None):
         self.echo = echo
         self.rows = []
+        self.memory = []
         self._last = time.perf_counter()
 
     def __call__(self, msg: str) -> None:
         now = time.perf_counter()
         self.rows.append([msg, now - self._last])
+        self.memory.append([msg, *rss_mib()])
         self._last = now
         if self.echo is not None:
             self.echo(msg)
@@ -78,7 +123,7 @@ class Stages:
 def inner_proofs(cfg, witness_offset: int = 0) -> dict:
     """Phase A: N inner proofs of the simple example at k_inner, each
     accepted by the host verify_proof.  Returns the inner vk, proofs,
-    instance commitments and quads."""
+    instance commitments, quads and the host verdicts."""
     from ..models import simple_example as se
     from ..plonk import kzg
     from ..plonk.keygen import keygen
@@ -93,7 +138,7 @@ def inner_proofs(cfg, witness_offset: int = 0) -> dict:
     t_read = PoseidonRead if cfg.constrained_fs else Blake2bRead
     k = cfg.k_inner
     params = kzg.setup(k)
-    proofs, comms, efws = [], [], []
+    proofs, comms, efws, oks = [], [], [], []
     vk = None
     for i, (a, b) in enumerate(WITNESSES[witness_offset : witness_offset + N]):
         circuit = se.MyCircuit(constant=7, a=a, b=b)
@@ -110,7 +155,8 @@ def inner_proofs(cfg, witness_offset: int = 0) -> dict:
         proofs.append(proof_i)
         comms.append(params.commit_lagrange(pub_i))
         efws.append(tuple(efw_i))
-    return {"vk": vk, "proofs": proofs, "inst_comms": comms, "efws": efws}
+        oks.append(bool(ok_i))
+    return {"vk": vk, "proofs": proofs, "inst_comms": comms, "efws": efws, "verified": oks}
 
 
 def outer_circuit(cfg, inner: dict):
@@ -199,9 +245,11 @@ def prove_and_save(cs, asg, public_inputs, k: int, *, seed: int, device="cuda", 
     of the meta.json.  `progress` gets a message after each stage;
     `prove_window`, a context manager, is entered around the prove alone
     (`create_proof_device` and its synchronise: a profiler's window).  Returns
-    the params, proof, vk, quad, instance commitment, `verified`, and
+    the params, proof, vk, quad, instance commitment, `verified`,
     `seconds`: the split, with keygen's and the prove's `progress` stages as
-    [message, seconds] rows."""
+    [message, seconds] rows, and `rss_mib`: [stage, RSS MiB, peak RSS MiB]
+    rows in run order (`rss_mib()` after the setup, the upload, each of
+    keygen's and the prove's stages, and the verify)."""
     import torch
 
     from ..device import resolve_device
@@ -224,6 +272,7 @@ def prove_and_save(cs, asg, public_inputs, k: int, *, seed: int, device="cuda", 
     t0 = time.perf_counter()
     params = kzg.setup(k, device=device)
     seconds["setup"] = time.perf_counter() - t0
+    rss = [["setup", *rss_mib()]]
     t0 = time.perf_counter()
     if srs is None:
         srs = DeviceSRS(params, device)
@@ -231,6 +280,7 @@ def prove_and_save(cs, asg, public_inputs, k: int, *, seed: int, device="cuda", 
         raise ValueError(f"srs of {srs.n} points on {srs.device}, expected {params.n} on {device}")
     sync()
     seconds["srs_upload"] = time.perf_counter() - t0
+    rss.append(["srs_upload", *rss_mib()])
     log(f"SRS at k = {k} ready")
 
     keygen_stages = Stages(log)
@@ -239,6 +289,7 @@ def prove_and_save(cs, asg, public_inputs, k: int, *, seed: int, device="cuda", 
     sync()
     seconds["keygen"] = time.perf_counter() - t0
     seconds["keygen_stages"] = keygen_stages.rows
+    rss += [[f"keygen: {m}", *r] for m, *r in keygen_stages.memory]
     log("keygen done")
 
     prove_stages = Stages(log)
@@ -249,11 +300,13 @@ def prove_and_save(cs, asg, public_inputs, k: int, *, seed: int, device="cuda", 
         sync()
     seconds["prove"] = time.perf_counter() - t0
     seconds["prove_stages"] = prove_stages.rows
+    rss += [[f"prove: {m}", *r] for m, *r in prove_stages.memory]
     del pk
 
     t0 = time.perf_counter()
     ok, efw = verify_proof(params, vk, [public_inputs], proof)
     seconds["verify"] = time.perf_counter() - t0
+    rss.append(["verify", *rss_mib()])
     inst_comm = srs.commit_lagrange(public_inputs)
     efw = tuple(efw) if efw is not None else None
     log(f"proof of {len(proof)} bytes {'valid' if ok else 'REJECTED'}")
@@ -261,7 +314,7 @@ def prove_and_save(cs, asg, public_inputs, k: int, *, seed: int, device="cuda", 
         save_artifacts(stem, proof, vk, meta or {}, public_inputs, efw, inst_comm)
         log(f"artifacts saved at {stem}.*")
     return {"params": params, "proof": proof, "vk": vk, "efw": efw, "inst_comm": inst_comm, "verified": bool(ok),
-            "seconds": seconds}
+            "seconds": seconds, "rss_mib": rss}
 
 
 def run_outer(
@@ -284,8 +337,12 @@ def run_outer(
     params, proof, vk, quad and instance commitment, `verified` (the host
     `verify_proof`), the artifacts' stem (None unless written), and
     `seconds`: the stage split, with keygen's and the prove's `progress`
-    stages as [message, seconds] rows.  For N > 1 also the in-circuit fold
-    (W, RHS) as `in_circuit_fold` (None for N = 1)."""
+    stages as [message, seconds] rows, and `rss_mib`: [stage, RSS MiB,
+    peak RSS MiB] rows in run order, from the inner proofs and the
+    synthesis on (`prove_and_save`'s after them).  Also the host verdicts
+    of the inner proofs (`inner_verified`), for N > 1 the in-circuit fold
+    (W, RHS) as `in_circuit_fold` (None for N = 1), and the synthesis'
+    assignment (`assignment`)."""
     from ..config import H2AConfig
     from ..device import resolve_device
 
@@ -301,34 +358,119 @@ def run_outer(
     inner = inner_proofs(cfg, witness_offset)
     outer, public_inputs = outer_circuit(cfg, inner)
     seconds["inner_proofs"] = time.perf_counter() - t0
+    rss = [["inner_proofs", *rss_mib()]]
     log(f"{cfg.num_proofs} inner proof(s) valid; {len(public_inputs)} outer public inputs")
 
     t0 = time.perf_counter()
     cs, asg, rows, in_circuit_quads, fold = synthesize(cfg, outer, public_inputs, inner["efws"])
     seconds["synthesis"] = time.perf_counter() - t0
+    rss.append(["synthesis", *rss_mib()])
     log(f"synthesized {rows} rows at k = {cfg.k_outer}; quads equal the host's")
 
     res = prove_and_save(cs, asg, public_inputs, cfg.k_outer, seed=seed, device=device, srs=srs, stem=stem,
                          meta=level1_meta(cfg, witness_offset), progress=log, prove_window=prove_window)
-    del asg
     seconds.update(res.pop("seconds"))
+    rss += res.pop("rss_mib")
     return {
         "num_proofs": cfg.num_proofs, "k_outer": cfg.k_outer, "constrained_fs": cfg.constrained_fs,
-        "rows": rows, "public_inputs": public_inputs, "inner_quads": inner["efws"],
+        "witness_offset": witness_offset, "rows": rows, "public_inputs": public_inputs,
+        "inner_quads": inner["efws"], "inner_verified": inner["verified"],
         "in_circuit_quads": in_circuit_quads, "in_circuit_fold": fold, **res,
         "artifact_stem": stem if res["verified"] else None, "seconds": seconds,
+        "rss_mib": rss, "assignment": asg,
     }
 
 
 def result_line(res: dict) -> dict:
-    """The command's JSON line from `run_outer`'s result."""
+    """The command's JSON line from `run_outer`'s result: beside `seconds`,
+    the [stage, RSS MiB, peak RSS MiB] rows, the stage that reached the
+    peak and the host's MemTotal."""
     return {
         "num_proofs": res["num_proofs"], "k_outer": res["k_outer"], "rows": res["rows"],
         "proof_bytes": len(res["proof"]), "proof_sha256": hashlib.sha256(res["proof"]).hexdigest(),
-        "vk_hash": str(res["vk"].hash_scalar()), "verified": res["verified"],
+        "vk_hash": str(res["vk"].hash_scalar()), "pis_sha256": pis_sha256(res["public_inputs"]),
+        "verified": res["verified"],
         "in_circuit_quads_equal_host": res["in_circuit_quads"] == res["inner_quads"],
         "artifact_stem": res["artifact_stem"], "seconds": res["seconds"],
+        "rss_mib": res["rss_mib"], "peak_rss_stage": peak_rss_stage(res["rss_mib"]),
+        "host_mem_total_mib": mem_total_mib(),
     }
+
+
+#: SHA-256 (`pis_sha256`) of the outer public inputs at (N, witness
+#: offset, constrained_fs) where no checked-in artifact holds them: the JAX
+#: package's `AggregationCircuit.public_inputs` over its own inner proofs
+#: (tests/test_torch_aggregation.py holds both packages to it)
+PIS_SHA256 = {
+    (8, 0, True): "df62a6f8655934de8bb7841f53166719dd3e6743bf62ec8c3eb0aa3a4a0c8bba",
+}
+
+
+def pis_sha256(public_inputs) -> str:
+    """SHA-256 of the public inputs, each as 32 big-endian bytes."""
+    return hashlib.sha256(b"".join(int(v).to_bytes(32, "big") for v in public_inputs)).hexdigest()
+
+
+def verify_on_device(params, vk, pis: list, proofs: list, efws: list, device) -> tuple:
+    """`verify_batch(aggregate=True)` on `device` over `proofs` (each with
+    its public inputs).  Returns (accepted with quads equal to `efws`, the
+    timings)."""
+    import torch
+
+    from ..plonk.verifier_device import verify_batch
+
+    t = {}
+    t1 = time.perf_counter()
+    ok, quads = verify_batch(params, vk, [[p] for p in pis], proofs, device=device, aggregate=True, timings=t)
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize(device)
+    t["wall"] = time.perf_counter() - t1
+    return ok is True and [tuple(map(tuple, q)) for q in quads] == list(efws), t
+
+
+def flipped_byte_verdict(params, vk, pis: list, proofs: list, device):
+    """The batch with one evaluation's byte of the first proof flipped (the
+    transcript still parses) through `verify_batch(aggregate=True)` on
+    `device`: how it was rejected, or None when it was accepted."""
+    from ..plonk.verifier_device import verify_batch
+
+    bad = bytearray(proofs[0])
+    bad[len(bad) - 64 * 5] ^= 1
+    try:
+        ok_bad, _ = verify_batch(params, vk, [[p] for p in pis], [bytes(bad), *proofs[1:]], device=device,
+                                 aggregate=True)
+        return "check_failed" if ok_bad is False else None
+    except ValueError as e:
+        return f"parse_raised: {e}"
+
+
+def run_checks(res: dict, device="cuda") -> dict:
+    """What a run can be held to without an artifact, one boolean each: the
+    N inner proofs accepted by the host `verify_proof`, the rows within the
+    outer vk's usable rows, the in-circuit quads (and, for N > 1, the fold)
+    equal to the host's, the outer proof accepted by the host
+    `verify_proof`, and by `verify_batch` on `device` at B = 1 and refused
+    with one byte flipped; and, where `PIS_SHA256` pins them, the public
+    inputs' SHA-256."""
+    from ..models.aggregation_circuit import fold_quads_host
+
+    n = res["num_proofs"]
+    checks = {
+        "inner_proofs_verified": len(res["inner_verified"]) == n and all(res["inner_verified"]),
+        "rows_fit": res["rows"] <= res["vk"].cs.usable_rows(res["vk"].n),
+        "in_circuit_quads_equal_host": res["in_circuit_quads"] == res["inner_quads"],
+    }
+    if n > 1:
+        checks["fold_equal_to_host"] = res["in_circuit_fold"] == fold_quads_host(
+            res["inner_quads"], constrained_fs=res["constrained_fs"])
+    checks["verified"] = res["verified"]
+    args = (res["params"], res["vk"], [res["public_inputs"]], [res["proof"]])
+    checks["verify_batch_b1_accepts"], _ = verify_on_device(*args, [res["efw"]], device)
+    checks["flipped_byte_rejected"] = flipped_byte_verdict(*args, device) is not None
+    pinned = PIS_SHA256.get((n, res["witness_offset"], res["constrained_fs"]))
+    if pinned is not None:
+        checks["pis_sha256_equal_to_pinned"] = pis_sha256(res["public_inputs"]) == pinned
+    return checks
 
 
 def expect_checks(res: dict, stem: str) -> dict:
@@ -354,9 +496,23 @@ def expect_checks(res: dict, stem: str) -> dict:
     }
 
 
-def peak_rss_mib() -> float:
-    """The process's peak resident set (Linux reports KiB)."""
-    return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 1024
+def kernel_launches() -> dict:
+    """Each kernel's launches so far in the process, under the names of
+    `chip_smoke.py`'s `kernels` line."""
+    from ..ops import ec_kernels as ek
+    from ..ops import msm_kernels as mk
+    from ..ops import ntt as nt
+    from ..plonk.fa_fused import fa_tape_eval
+    from ..plonk.quotient_program import quotient_tape_eval
+
+    return {
+        "ntt": nt.ntt_batched.launches, "intt": nt.intt_batched.launches,
+        "ew": nt.ew_mul_col.launches + nt.ew_mul_scalar.launches + nt.pow_series.launches,
+        "quotient_tape": quotient_tape_eval.launches, "msm_s5": mk.msm_bucket_s5.launches,
+        "msm_u4": mk.msm_bucket_u4.launches, "ec_win": ek.scalar_mul_win.launches,
+        "ec_ladder": ek.scalar_mul_ladder.launches, "fa_tape": fa_tape_eval.launches,
+        "jac_segment_sum": ek.jac_segment_sum.launches,
+    }
 
 
 def card_line() -> str:
@@ -387,13 +543,19 @@ def main(argv=None) -> int:
         progress=lambda m: print(f"  [{time.perf_counter() - t0:8.1f}s] {m}", flush=True),
     )
     print(json.dumps(result_line(res)), flush=True)
-    checks = expect_checks(res, args.expect) if args.expect else {}
+    launches = kernel_launches()
+    checks = run_checks(res)
+    after = kernel_launches()
+    if args.expect:
+        checks.update(expect_checks(res, args.expect))
     print(json.dumps({
         "card": card_line(), "expect": args.expect or None, **checks, "wall_s": time.perf_counter() - t0,
+        # the run's (its SRS's fixed-base products on K1 too when kzg.setup's cache was cold), then run_checks'
+        "launches": launches, "launches_checks": {name: after[name] - launches[name] for name in after},
         "peak_device_mib": torch.cuda.max_memory_allocated() / 2**20 if torch.cuda.is_available() else None,
-        "peak_rss_mib": peak_rss_mib(),
+        "peak_rss_mib": peak_rss_mib(), "host_mem_total_mib": mem_total_mib(),
     }), flush=True)
-    return 0 if res["verified"] and all(checks.values()) else 1
+    return 0 if all(checks.values()) else 1
 
 
 if __name__ == "__main__":

@@ -1,13 +1,16 @@
 """The aggregation proper (N > 1 inner proofs in one outer circuit) through
 the port's outer driver, `tools/outer_prove.py`, against the JAX package and
 the checked-in artifacts `docs/artifacts/outer_n2_k22{,b}` and
-`outer_n4_k23`; and the commands' checks that hold a card run to them
-(`--expect`, `level2_prove --children`).
+`outer_n4_k23`, and at N = 8 (k = 24, no artifact) against the JAX package
+and the public inputs' SHA-256 pinned in `outer_prove.PIS_SHA256`; and the
+commands' checks that hold a card run to them (`--expect`, `run_checks`,
+`level2_prove --children`) and the RSS of each stage they print.
 
 Phases A-B (the inner proofs at k = 9 with the Poseidon transcript, seed
 42 + i, and the outer circuit's public inputs) run here in seconds; the
-synthesis at N = 2 (phase C, 2.67M rows) is marked slow, as the JAX
-package's own N = 2 synthesis tests are.  Exact equality throughout."""
+synthesis at N = 2 (phase C, 2.67M rows) and at N = 8 (about 10.7M rows,
+port only: the JAX side needs about 55 GB there) is marked slow, as the JAX
+package's own N > 1 synthesis tests are.  Exact equality throughout."""
 
 import json
 import shutil
@@ -33,8 +36,8 @@ torch.set_num_threads(1)  # small tensors; the test workers share the cores
 
 ART = Path(__file__).resolve().parents[1] / "docs" / "artifacts"
 K_INNER = 9
-#: (N, witness offset, the artifact made from that window)
-RUNS = [(2, 0, "outer_n2_k22"), (2, 2, "outer_n2_k22b"), (4, 0, "outer_n4_k23")]
+#: (N, witness offset, the artifact made from that window; None at N = 8)
+RUNS = [(2, 0, "outer_n2_k22"), (2, 2, "outer_n2_k22b"), (4, 0, "outer_n4_k23"), (8, 0, None)]
 #: the N = 2 synthesis' rows (docs/PHASE_D_n2b_k22_dq_run.log:4)
 ROWS_N2 = 2673963
 
@@ -105,18 +108,23 @@ def test_inner_proofs_equal_the_jax_package(n, off, stem, reference, port):
 def test_public_inputs_equal_the_jax_package_and_the_meta(n, off, stem, reference, port):
     """Phase B: the `AggregationCircuit`'s 40 N + 16 public inputs equal
     the JAX package's `AggregationCircuit.public_inputs` over its own inner
-    proofs and the artifact meta's."""
+    proofs and the artifact meta's; at N = 8, where no artifact exists,
+    their SHA-256 is the one `outer_prove.run_checks` holds a card run to."""
     vk_r, proofs_r, comms_r, efws_r = reference(n, off)
     _, outer, pis = port(n, off)
     want = ac_r.AggregationCircuit(vk_r, proofs_r, num_proofs=n, constrained_fs=True).public_inputs(comms_r, efws_r)
-    meta = json.loads((ART / f"{stem}.meta.json").read_text())
     assert type(outer).__name__ == "AggregationCircuit" and outer.num_proofs == n and outer.constrained_fs
-    assert len(pis) == 40 * n + 16 == {2: 96, 4: 176}[n]
+    assert len(pis) == 40 * n + 16 == {2: 96, 4: 176, 8: 336}[n]
     assert pis == [int(v) for v in want]
-    assert pis == [int(v) for v in meta["public_inputs"]]
+    if stem is None:
+        assert outer_prove.pis_sha256(want) == outer_prove.PIS_SHA256[n, off, True]
+    else:
+        meta = json.loads((ART / f"{stem}.meta.json").read_text())
+        assert pis == [int(v) for v in meta["public_inputs"]]
+        assert (n, off, True) not in outer_prove.PIS_SHA256
 
 
-@pytest.mark.parametrize("n", [2, 4])
+@pytest.mark.parametrize("n", [2, 4, 8])
 @pytest.mark.parametrize("constrained_fs", [True, False])
 def test_fold_quads_host_equals_the_jax_package(n, constrained_fs, reference):
     """The host fold the in-circuit fold is held to (W, RHS under the
@@ -140,7 +148,20 @@ def result_of(stem: Path) -> dict:
         "efw": tuple(tuple(int(c) for c in p) for p in meta["efw"]),
         "inst_comm": tuple(int(c) for c in meta["inst_comm"]), "verified": True,
         "num_proofs": meta["num_proofs"], "k_outer": meta["k"], "rows": 0, "in_circuit_quads": [],
-        "inner_quads": [], "artifact_stem": None, "seconds": {},
+        "inner_quads": [], "artifact_stem": None, "seconds": {}, "rss_mib": [["synthesis", 10.0, 12.0]],
+    }
+
+
+def run_result(inner: dict, pis: list, n: int) -> dict:
+    """What `run_outer` returns for the keys `run_checks` reads, from the
+    port's phases A-B: every check true (the card's verify stubbed)."""
+    vk = type("VK", (), {"n": 16, "cs": type("CS", (), {"usable_rows": lambda self, n: n - 6})()})()
+    return {
+        "num_proofs": n, "witness_offset": 0, "constrained_fs": True, "rows": 10,
+        "inner_verified": list(inner["verified"]), "inner_quads": list(inner["efws"]),
+        "in_circuit_quads": list(inner["efws"]),
+        "in_circuit_fold": ac.fold_quads_host(inner["efws"], constrained_fs=True) if n > 1 else None,
+        "verified": True, "params": None, "vk": vk, "public_inputs": list(pis), "proof": b"proof", "efw": ((1, 2),),
     }
 
 
@@ -198,9 +219,10 @@ def test_expect_ignores_the_witness_offset_key(tmp_path):
 def test_main_exits_1_when_expect_differs(tmp_path, monkeypatch, capsys):
     """`outer_prove --expect STEM` exits 0 on an equal run, 1 after one
     byte of the stem's proof changes (the run itself stubbed by the
-    artifact's own values)."""
+    artifact's own values, its `run_checks` by true)."""
     stem = copy_stem("outer_n2_k22b", tmp_path)
     monkeypatch.setattr(outer_prove, "run_outer", lambda *a, **k: result_of(ART / "outer_n2_k22b"))
+    monkeypatch.setattr(outer_prove, "run_checks", lambda res: {"verified": res["verified"]})
     assert outer_prove.main(["--expect", str(stem)]) == 0
     line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert line["proof_equal_to_artifact"] is True and line["peak_rss_mib"] > 0
@@ -208,6 +230,117 @@ def test_main_exits_1_when_expect_differs(tmp_path, monkeypatch, capsys):
     assert outer_prove.main(["--expect", str(stem)]) == 1
     line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert line["proof_equal_to_artifact"] is False
+
+
+@pytest.mark.parametrize("n", [2, 8])
+def test_run_checks_turn_false_one_at_a_time(n, port, monkeypatch):
+    """`run_checks` over a run built from the port's phases A-B (the card's
+    `verify_batch` stubbed): all true, with the pinned SHA-256 at N = 8
+    only; each one change turns exactly its check false."""
+    inner, _, pis = port(n, 0)
+    verdicts = {"accept": True, "flipped": "check_failed"}
+    monkeypatch.setattr(outer_prove, "verify_on_device", lambda *a: (verdicts["accept"], {}))
+    monkeypatch.setattr(outer_prove, "flipped_byte_verdict", lambda *a: verdicts["flipped"])
+    res = run_result(inner, pis, n)
+    checks = outer_prove.run_checks(res, "cpu")
+    assert all(checks.values()) and ("pis_sha256_equal_to_pinned" in checks) == (n == 8)
+    assert "fold_equal_to_host" in checks
+    other = inner["efws"][1]
+    changes = {
+        "inner_proofs_verified": ("inner_verified", [True] * (n - 1) + [False]),
+        "rows_fit": ("rows", 11),
+        "in_circuit_quads_equal_host": ("in_circuit_quads", [other] * n),
+        "fold_equal_to_host": ("in_circuit_fold", (1, 2)),
+        "verified": ("verified", False),
+        "pis_sha256_equal_to_pinned": ("public_inputs", [*pis[:-1], pis[-1] + 1]),
+    }
+    for check, (key, value) in changes.items():
+        if check not in checks:
+            continue
+        checks = outer_prove.run_checks({**res, key: value}, "cpu")
+        assert [k for k, ok in checks.items() if not ok] == [check], check
+    for key, value, check in (("accept", False, "verify_batch_b1_accepts"), ("flipped", None, "flipped_byte_rejected")):
+        saved, verdicts[key] = verdicts[key], value
+        checks = outer_prove.run_checks(res, "cpu")
+        assert [k for k, ok in checks.items() if not ok] == [check]
+        verdicts[key] = saved
+
+
+def test_main_exits_1_when_a_run_check_fails(monkeypatch, capsys):
+    """Without `--expect`, `main` holds the run to `run_checks` alone."""
+    monkeypatch.setattr(outer_prove, "run_outer", lambda *a, **k: result_of(ART / "outer_n2_k22b"))
+    monkeypatch.setattr(outer_prove, "run_checks", lambda res: {"verified": True, "rows_fit": True})
+    assert outer_prove.main([]) == 0
+    monkeypatch.setattr(outer_prove, "run_checks", lambda res: {"verified": True, "rows_fit": False})
+    assert outer_prove.main([]) == 1
+    line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert line["rows_fit"] is False and line["expect"] is None and line["host_mem_total_mib"] > 0
+
+
+def test_result_line_carries_the_rss_of_each_stage():
+    """`result_line` beside `seconds`: the [stage, RSS, peak] rows, the
+    stage during which the peak was reached, the host's MemTotal, the
+    public inputs' SHA-256."""
+    res = {**result_of(ART / "outer_n2_k22b"), "rss_mib": [
+        ["inner_proofs", 200.0, 210.0], ["synthesis", 900.0, 950.0], ["keygen: fixed committed", 1500.0, 1600.0],
+        ["prove: evaluations", 1400.0, 2400.0], ["prove: multiopen witnesses", 1450.0, 2400.0],
+        ["verify", 800.0, 2400.0]]}
+    line = outer_prove.result_line(res)
+    assert line["rss_mib"] == res["rss_mib"] and line["peak_rss_stage"] == "prove: evaluations"
+    assert 0 < line["host_mem_total_mib"] and line["pis_sha256"] == outer_prove.pis_sha256(res["public_inputs"])
+    assert json.loads(json.dumps(line)) == line
+
+
+def test_stages_record_rss_at_each_message():
+    """`Stages` keeps [message, seconds] rows (the benchmark sums them) and
+    [message, RSS, peak] rows: the RSS of /proc/self/statm, the peak of
+    `ru_maxrss`, which grows with a large array."""
+    import numpy as np
+
+    stages = outer_prove.Stages()
+    stages("before")
+    big = np.ones(64 << 20, np.uint8)
+    stages("after")
+    assert [r[0] for r in stages.rows] == [r[0] for r in stages.memory] == ["before", "after"]
+    assert all(len(r) == 2 for r in stages.rows) and all(len(r) == 3 for r in stages.memory)
+    (_, rss0, peak0), (_, rss1, peak1) = stages.memory
+    assert 0 < rss0 <= peak0 <= peak1 and rss1 >= rss0 + 60 and int(big.sum()) == 64 << 20
+    assert outer_prove.peak_rss_stage(stages.memory) == "after" and outer_prove.peak_rss_stage([]) is None
+
+
+def test_prove_and_save_records_rss_in_run_order(monkeypatch):
+    """`prove_and_save`'s `rss_mib`: setup, the upload, each of keygen's
+    and the prove's `progress` stages (prefixed), then the verify."""
+    from halo2_aggregation_tpu_torch.plonk import keygen_device, kzg, prover_device, verifier
+
+    class SRS:
+        n, device = 4, torch.device("cpu")
+
+        def __init__(self, *a):
+            pass
+
+        def commit_lagrange(self, values):
+            return (1, 2)
+
+    def keygen(*a, progress, **k):
+        progress("fixed committed")
+        progress("permutation arrays")
+        return "vk", "pk"
+
+    def prove(*a, progress, **k):
+        progress("advice committed")
+        return b"p"
+
+    monkeypatch.setattr(kzg, "setup", lambda k, device=None: type("P", (), {"n": 4})())
+    monkeypatch.setattr(kzg, "DeviceSRS", SRS)
+    monkeypatch.setattr(keygen_device, "keygen_device", keygen)
+    monkeypatch.setattr(prover_device, "create_proof_device", prove)
+    monkeypatch.setattr(verifier, "verify_proof", lambda *a: (True, None))
+    res = outer_prove.prove_and_save("cs", "asg", [1], 2, seed=1, device="cpu")
+    assert [r[0] for r in res["rss_mib"]] == ["setup", "srs_upload", "keygen: fixed committed",
+                                              "keygen: permutation arrays", "prove: advice committed", "verify"]
+    assert all(0 < r[1] <= r[2] for r in res["rss_mib"])
+    assert [r[0] for r in res["seconds"]["keygen_stages"]] == ["fixed committed", "permutation arrays"]
 
 
 def test_main_refuses_a_missing_expect_stem_before_any_work(tmp_path, monkeypatch):
@@ -272,3 +405,28 @@ def test_phase_c_two_proofs(reference, port):
     assert outer.last_lambda.value == ac_r.aggregate_lambda_poseidon(efws_r)
     assert fold == ac_r.fold_quads_host(efws_r, constrained_fs=True)
     assert rows == ROWS_N2 and rows <= cs.usable_rows(1 << 22)
+
+
+def phase_c_port_only(n: int, port) -> None:
+    """Phase C at N proofs on the port alone: `synthesize` (which raises
+    unless every in-circuit quad equals the host verifier's and the fold
+    `fold_quads_host`'s), each quad and the fold once more, the rows within
+    `cs.usable_rows(2^k)`, and the rows of the affine line through N = 1, 2
+    and 4 (`docs/AGGREGATION_SCALING.md`) within 3 % (the constrained
+    transcript adds rows a proof)."""
+    inner, outer, pis = port(n, 0)
+    cfg = cfg_of(n)
+    cs, asg, rows, quads, fold = outer_prove.synthesize(cfg, outer, pis, inner["efws"])
+    assert quads == [tuple(q) for q in inner["efws"]] and len(quads) == n
+    assert fold == ac.fold_quads_host(inner["efws"], constrained_fs=True)
+    assert outer.last_lambda.value == ac.aggregate_lambda_poseidon(inner["efws"])
+    assert rows <= cs.usable_rows(1 << cfg.k_outer) and asg.n == 1 << cfg.k_outer
+    assert abs(rows - (1300406 * n - 7300)) < 0.03 * rows
+
+
+@pytest.mark.slow
+def test_phase_c_eight_proofs(port):
+    """Phase C at N = 8, k = 24 against the host's quads and fold, port
+    only (the JAX package's synthesis needs about 55 GB here,
+    tests/test_aggregation.py)."""
+    phase_c_port_only(8, port)

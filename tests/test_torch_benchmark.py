@@ -424,11 +424,11 @@ def test_run_outer_forwards_the_seed_and_the_window(monkeypatch):
     from halo2_aggregation_tpu_torch.config import H2AConfig
 
     got = {}
-    monkeypatch.setattr(outer_prove, "inner_proofs", lambda cfg, off: {"efws": []})
+    monkeypatch.setattr(outer_prove, "inner_proofs", lambda cfg, off: {"efws": [], "verified": []})
     monkeypatch.setattr(outer_prove, "outer_circuit", lambda cfg, inner: (None, [1]))
     monkeypatch.setattr(outer_prove, "synthesize", lambda *a: ("cs", "asg", 10, [], None))
     monkeypatch.setattr(outer_prove, "prove_and_save",
-                        lambda *a, **k: got.update(k) or {"verified": True, "seconds": {}})
+                        lambda *a, **k: got.update(k) or {"verified": True, "seconds": {}, "rss_mib": []})
     window = object()
     outer_prove.run_outer(H2AConfig(k_outer=21, num_proofs=1), device="cpu", seed=5, prove_window=window)
     assert got["seed"] == 5 and got["prove_window"] is window
@@ -469,7 +469,8 @@ def test_prove_and_save_enters_the_window_around_the_prove_alone(monkeypatch):
 def test_result_line_says_whether_the_quads_agree():
     res = {"num_proofs": 1, "k_outer": 21, "rows": 3, "proof": b"abc", "vk": type("V", (), {"hash_scalar": lambda s: 9})(),
            "verified": True, "in_circuit_quads": [(1, 2)], "inner_quads": [(1, 2)], "artifact_stem": None,
-           "seconds": {"prove": 1.0}}
+           "seconds": {"prove": 1.0}, "rss_mib": [["synthesis", 10.0, 12.0]],
+           "public_inputs": [1]}
     line = outer_prove.result_line(res)
     assert line["in_circuit_quads_equal_host"] is True and line["proof_sha256"] == hashlib.sha256(b"abc").hexdigest()
     assert json.loads(json.dumps(line)) == line
