@@ -13,7 +13,8 @@ proof's n = 2^21 (K7 and K9), and the prover's, `keygen_device` and
 commitment on the card; then the aggregation product, the k = 21 outer
 proof of one inner proof (`tools/outer_prove.py::run_outer`), held byte for
 byte to `docs/artifacts/outer_n1_k21.*`, and the k = 22 aggregation of two
-inner proofs, held byte for byte to `docs/artifacts/outer_n2_k22.*`.
+inner proofs, held byte for byte to `docs/artifacts/outer_n2_k22.*`; last,
+the checked-in level-2 node's proof through the card's verifier.
 
 Phases (each prints on its own lines; any failure raises and exits
 nonzero before the last line):
@@ -132,7 +133,13 @@ nonzero before the last line):
      host's; `verify_batch(aggregate=True)` at B = 2 over [this proof, the
      checked-in `outer_n2_k22b.proof`] accepted with both metas' quads, and
      the pair with a byte flipped rejected; the stage split, peak device
-     memory, the RSS at each stage, and the same kernels launched.
+     memory, the RSS at each stage, and the same kernels launched;
+ 11. level2: the recursion node's proof (`docs/artifacts/level2_n2_k23`,
+     k = 23, the path every level-3 child takes) through
+     `verify_batch(aggregate=True)` at B = 1 under its own vk and
+     `kzg.setup(23)` made on the card: accepted with the meta's quad and
+     instance commitment, refused with one byte flipped, K2, K1 and the
+     segmented sum launched.
 Then one JSON line with the kernels' numbers (each with its launches on its
 path, its time, its plain version's time, its bound and `library_ms`: null,
 as no PyTorch call computes 256-bit modular arithmetic; the lane-serial
@@ -1789,6 +1796,45 @@ def phase_outer_n2(device) -> dict:
     return launches
 
 
+def phase_level2(device) -> dict:
+    """The recursion node's proof through the card's verifier, the path every
+    level-3 child takes: `kzg.setup(23, device=...)` (its fixed-base
+    products through K1), then `verify_batch(aggregate=True)` at B = 1 over
+    the checked-in `docs/artifacts/level2_n2_k23` under its own vk: accepted
+    with the quad equal to the meta's `efw` and the instance commitment to
+    its `inst_comm`, and refused with one byte flipped.  Returns the
+    launches of each kernel in the verifies."""
+    import hashlib
+
+    from halo2_aggregation_tpu_torch.aggregation.tree import load_artifact
+    from halo2_aggregation_tpu_torch.plonk import kzg
+    from halo2_aggregation_tpu_torch.plonk.verifier_device import commit_instance
+    from halo2_aggregation_tpu_torch.tools.outer_prove import flipped_byte_verdict, verify_on_device
+
+    stem = os.path.join(ROOT, "docs", "artifacts", "level2_n2_k23")
+    proof, vk, meta, pis, efw, inst_comm = load_artifact(stem)
+    t0 = time.perf_counter()
+    params = kzg.setup(meta["k"], device=device)
+    setup_s = time.perf_counter() - t0
+    reset_verifier_launches()
+    checks = {"inst_comm_equal_to_meta": commit_instance(params, pis, vk.cs.usable_rows(vk.n)) == inst_comm}
+    checks["verify_batch_b1_accepts"], timings = verify_on_device(params, vk, [pis], [proof], [efw], device)
+    rejected = flipped_byte_verdict(params, vk, [pis], [proof], device)
+    checks["flipped_byte_rejected"] = rejected is not None
+    launches = verifier_launches()
+    emit({"phase": "level2", "artifact": "docs/artifacts/level2_n2_k23", "k": meta["k"], "level": meta["level"],
+          **checks, "vk_hash": str(vk.hash_scalar()), "proof_sha256": hashlib.sha256(proof).hexdigest(),
+          "public_inputs": len(pis), "setup_s": setup_s, "verify_batch_s": timings, "flipped_byte": rejected,
+          "launches": launches})
+    failed = [n for n, ok in checks.items() if ok is not True]
+    if failed:
+        raise AssertionError(f"level2: {failed} false")
+    for kernel, n in launches.items():
+        if n < 1:
+            raise AssertionError(f"level2: {kernel} was not launched: {launches}")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -1851,6 +1897,8 @@ def main() -> int:
     done("outer")
     outer_n2_launches = phase_outer_n2(device)
     done("outer_n2")
+    level2_launches = phase_level2(device)
+    done("level2")
     emit({"phase_seconds": seconds, "total_s": sum(seconds.values())})
     for name, rec in recs.items():
         rec["launches"] = prove_launches[name]
@@ -1858,10 +1906,12 @@ def main() -> int:
     msm_recs["msm_s5"]["launches"] = prove_launches["msm_s5"]
     # each kernel's launches in the `outer` phase: one k = 21 outer keygen,
     # prove and instance commitment, then verify_batch at B = 1, 2 and 1;
-    # in `outer_n2` the same at k = 22, then verify_batch at B = 2 twice
+    # in `outer_n2` the same at k = 22, then verify_batch at B = 2 twice;
+    # in `level2` verify_batch at B = 1 over the node's proof, then flipped
     for rec in (k1, k2, *recs.values(), msm_recs["msm_s5"], k8, msm_recs["msm_u4"], js):
         rec["launches_outer"] = outer_launches.get(rec["name"], 0)
         rec["launches_outer_n2"] = outer_n2_launches.get(rec["name"], 0)
+        rec["launches_level2"] = level2_launches.get(rec["name"], 0)
         rec["launches_benchmark"] = benchmark_launches[rec["name"]]
     emit(card)  # once more, beside the numbers: the build's report is long
     emit({"kernels": [k1, k2, *recs.values(), msm_recs["msm_s5"], k8, msm_recs["msm_u4"], js]})

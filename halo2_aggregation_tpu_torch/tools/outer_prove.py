@@ -403,6 +403,9 @@ def result_line(res: dict) -> dict:
 #: (tests/test_torch_aggregation.py holds both packages to it)
 PIS_SHA256 = {
     (8, 0, True): "df62a6f8655934de8bb7841f53166719dd3e6743bf62ec8c3eb0aa3a4a0c8bba",
+    # the recursion tree's two leaves beside outer_n2_k22{,b} (tools/tree_prove.py)
+    (2, 4, True): "0f4489f914045d91401ada528e73b053835aa1f75c00bf7d8d2f2673f4c1106f",
+    (2, 6, True): "406bf863d896254e6471534d41eb8aebaa3dcf394ab7c5f612b880e6ec4831b7",
 }
 
 

@@ -1,8 +1,11 @@
 """The aggregation proper (N > 1 inner proofs in one outer circuit) through
 the port's outer driver, `tools/outer_prove.py`, against the JAX package and
 the checked-in artifacts `docs/artifacts/outer_n2_k22{,b}` and
-`outer_n4_k23`, and at N = 8 (k = 24, no artifact) against the JAX package
-and the public inputs' SHA-256 pinned in `outer_prove.PIS_SHA256`; and the
+`outer_n4_k23`, and at N = 8 (k = 24) and at N = 2 over witness offsets 4
+and 6 (the recursion tree's new leaves, `tools/tree_prove.py`), where no
+artifact exists, against the JAX package and the public inputs' SHA-256
+pinned in `outer_prove.PIS_SHA256`; the level-3 node's public inputs over
+`level2_n2_k23` against the JAX package's; and the
 commands' checks that hold a card run to them (`--expect`, `run_checks`,
 `level2_prove --children`) and the RSS of each stage they print.
 
@@ -36,8 +39,10 @@ torch.set_num_threads(1)  # small tensors; the test workers share the cores
 
 ART = Path(__file__).resolve().parents[1] / "docs" / "artifacts"
 K_INNER = 9
-#: (N, witness offset, the artifact made from that window; None at N = 8)
-RUNS = [(2, 0, "outer_n2_k22"), (2, 2, "outer_n2_k22b"), (4, 0, "outer_n4_k23"), (8, 0, None)]
+#: (N, witness offset, the artifact made from that window; None where no
+#: artifact exists: the recursion tree's two new leaves and N = 8)
+RUNS = [(2, 0, "outer_n2_k22"), (2, 2, "outer_n2_k22b"), (4, 0, "outer_n4_k23"), (8, 0, None),
+        (2, 4, None), (2, 6, None)]
 #: the N = 2 synthesis' rows (docs/PHASE_D_n2b_k22_dq_run.log:4)
 ROWS_N2 = 2673963
 
@@ -109,7 +114,8 @@ def test_public_inputs_equal_the_jax_package_and_the_meta(n, off, stem, referenc
     """Phase B: the `AggregationCircuit`'s 40 N + 16 public inputs equal
     the JAX package's `AggregationCircuit.public_inputs` over its own inner
     proofs and the artifact meta's; at N = 8, where no artifact exists,
-    their SHA-256 is the one `outer_prove.run_checks` holds a card run to."""
+    their SHA-256 is the one `outer_prove.run_checks` holds a card run to
+    (N = 8 and the tree's leaves at witness offsets 4 and 6)."""
     vk_r, proofs_r, comms_r, efws_r = reference(n, off)
     _, outer, pis = port(n, off)
     want = ac_r.AggregationCircuit(vk_r, proofs_r, num_proofs=n, constrained_fs=True).public_inputs(comms_r, efws_r)
@@ -122,6 +128,27 @@ def test_public_inputs_equal_the_jax_package_and_the_meta(n, off, stem, referenc
         meta = json.loads((ART / f"{stem}.meta.json").read_text())
         assert pis == [int(v) for v in meta["public_inputs"]]
         assert (n, off, True) not in outer_prove.PIS_SHA256
+
+
+def test_level3_public_inputs_equal_the_jax_package():
+    """Phase B one level up: the level-3 node's `AggregationCircuit` over
+    `level2_n2_k23` in both slots (its vk loaded by each package's own
+    `load_vk`, the node's default transcript) has the JAX package's 96
+    public inputs; the vk is the level-2 node's, at k = 23."""
+    from halo2_aggregation_tpu.utils.artifacts import load_vk as load_vk_r
+
+    stem = str(ART / "level2_n2_k23")
+    proof = (ART / "level2_n2_k23.proof").read_bytes()
+    meta = json.loads((ART / "level2_n2_k23.meta.json").read_text())
+    efw = tuple(tuple(int(c) for c in p) for p in meta["efw"])
+    inst_comm = tuple(int(c) for c in meta["inst_comm"])
+    vk, vk_r = artifacts.load_vk(stem), load_vk_r(stem)
+    assert vk.k == vk_r.k == 23 and vk.hash_scalar() == vk_r.hash_scalar()
+    got = ac.AggregationCircuit(vk, [proof, proof], num_proofs=2).public_inputs([inst_comm] * 2, [efw] * 2)
+    want = ac_r.AggregationCircuit(vk_r, [proof, proof], num_proofs=2).public_inputs([inst_comm] * 2, [efw] * 2)
+    assert len(got) == 96 and got == [int(v) for v in want]
+    # the node's instance: each child's instance commitment and quad, then the fold
+    assert got != [int(v) for v in meta["public_inputs"]]
 
 
 @pytest.mark.parametrize("n", [2, 4, 8])
@@ -430,3 +457,39 @@ def test_phase_c_eight_proofs(port):
     only (the JAX package's synthesis needs about 55 GB here,
     tests/test_aggregation.py)."""
     phase_c_port_only(8, port)
+
+
+@pytest.mark.slow
+def test_level3_synthesis_equals_the_jax_package():
+    """The level-3 node's synthesis (`prove_node`'s circuit one level up)
+    over `level2_n2_k23` in both slots at k = 23, port against the JAX
+    package's `ac.build` on the same proof, vk file and public inputs: the
+    same rows, in-circuit quads and fold; the quads are the meta's and the
+    rows fit k = 23.  The JAX side runs first and is freed before the port's
+    (each about 2 min here)."""
+    import gc
+
+    from halo2_aggregation_tpu.utils.artifacts import load_vk as load_vk_r
+
+    stem = str(ART / "level2_n2_k23")
+    proof = (ART / "level2_n2_k23.proof").read_bytes()
+    meta = json.loads((ART / "level2_n2_k23.meta.json").read_text())
+    efw = tuple(tuple(int(c) for c in p) for p in meta["efw"])
+    inst_comm = tuple(int(c) for c in meta["inst_comm"])
+
+    def synthesis(ac_mod, vk) -> tuple:
+        circ = ac_mod.AggregationCircuit(vk, [proof, proof], num_proofs=2)
+        pis = circ.public_inputs([inst_comm] * 2, [efw] * 2)
+        cs, _, _, ctx, (quads, W, RHS) = ac_mod.build(circ, 23, pis)
+        def point(cell):
+            return tuple(int(c) for c in cell.value())
+
+        got = [(point(q.e), point(q.f), point(q.w), point(q.zw)) for q in quads]
+        return ctx.offset, cs.usable_rows(1 << 23), got, (point(W), point(RHS))
+
+    want = synthesis(ac_r, load_vk_r(stem))
+    gc.collect()
+    got = synthesis(ac, artifacts.load_vk(stem))
+    assert got == want
+    rows, usable, quads, fold = got
+    assert quads == [efw, efw] and fold == ac.fold_quads_host([efw, efw]) and rows <= usable

@@ -97,7 +97,9 @@ def test_every_module_imports_without_jax():
     """Each module of the package (the host copies, the MSM's `ops/msm`,
     `ops/msm_kernels`, `plonk/kzg` and `plonk/keygen_device`, the outer
     prover `tools/outer_prove`, `api`, `utils/jobs`, `aggregation/tree`,
-    `parallel/` and `tools/dryrun_multichip` among them) and `chip_smoke.py`
+    `parallel/`, `tools/dryrun_multichip` and the root programs' counterparts
+    `tools/{tree_prove,level2_probe,rows_vs_n,row_costs,graft_entry}` among
+    them) and `chip_smoke.py`
     import with `jax` and the JAX package made unimportable."""
     script = POISON + textwrap.dedent(
         """
@@ -121,7 +123,8 @@ def test_every_module_imports_without_jax():
                  "models.aggregation_circuit", "convert", "tools.outer_prove", "api", "config",
                  "utils.jobs", "utils.artifacts", "aggregation.tree", "parallel", "parallel.mesh",
                  "parallel.sharded_msm", "parallel.batch_verify", "tools.dryrun_multichip", "bench",
-                 "tools.measure"):
+                 "tools.measure", "tools.tree_prove", "tools.level2_probe", "tools.rows_vs_n", "tools.row_costs",
+                 "tools.graft_entry"):
         assert "halo2_aggregation_tpu_torch." + name in imported
 
 
@@ -228,6 +231,10 @@ def test_cuda_request_raises_without_a_card():
         ("parallel.mesh", "make_mesh"),
         ("parallel.mesh", "run_ranks"),
         ("bench", "run"),
+        ("tools.tree_prove", "main"),
+        ("tools.level2_probe", "probe"),
+        ("tools.rows_vs_n", "inner_proofs"),
+        ("tools.graft_entry", "entry"),
     ],
 )
 def test_entry_points_default_to_the_card(module, name):
